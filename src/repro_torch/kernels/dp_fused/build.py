@@ -1,0 +1,91 @@
+"""Build the dp_fused CUDA kernels with ``nvcc`` at first use and bind them.
+
+The source ``csrc/dp_fused.cu`` has a plain C interface, so it compiles in
+seconds without PyTorch's headers. The shared library goes under
+``build/dp_fused/`` at the repository root, named by a hash of the source
+and the flags, and is loaded with ``ctypes``. Nothing is compiled or loaded
+when this module is imported: :func:`load` does it on the first launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dp_fused.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "dp_fused"
+# -Xptxas -v makes nvcc report each kernel's registers, shared memory and
+# spills; the log is kept on the loaded library for the smoke run to print.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float      # nvcc wall time in this process; 0.0 if reused
+    log: str            # nvcc's output ("" if reused)
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if an entry point returned a CUDA error code."""
+        if code != 0:
+            msg = self.lib.dp_fused_error_string(code).decode()
+            raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "dp_fused kernels are built from source at first use")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dp_fused_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
+    lib.dp_fused_fwd.restype = i
+    lib.dp_fused_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, p]
+    lib.dp_fused_bwd.restype = i
+    lib.dp_fused_error_string.argtypes = [i]
+    lib.dp_fused_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> KernelLibrary:
+    """Compile (once per source and flag set) and load the kernel library."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libdp_fused_{digest}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        # build under a private name, then rename: concurrent processes
+        # never load a half-written library
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(SOURCE)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with code {proc.returncode} "
+                               f"building {SOURCE}:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _bind(lib)
+    return KernelLibrary(lib, so, seconds, log)

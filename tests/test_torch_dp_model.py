@@ -1,0 +1,183 @@
+"""The port's Deep Potential model against the reference, rung by rung.
+
+Same inputs (numpy, seeded) and the same weights (the reference's pytree
+through ``bridge.params_from_numpy``) go through ``repro.core`` and
+``repro_torch.core``. Tolerances are f32 summation order: energy rtol 1e-5,
+forces atol 2e-5, virial atol 2e-4.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import descriptor as jax_descriptor
+from repro.core import dp_model as jax_dp
+from repro.md import lattice as jax_lattice
+from repro.md import neighbors as jax_neighbors
+from repro_torch import bridge
+from repro_torch.core import descriptor, dp_model, layers
+
+# One torch thread: the suite's pytest workers already occupy the cores, and
+# intra-op threads on top of them stall (see test_torch_md.py).
+torch.set_num_threads(1)
+
+CPU = "cpu"
+
+
+def _to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _system(cfg, pos, typ, box):
+    spec = jax_neighbors.NeighborSpec(rcut_nbr=cfg.rcut, sel=cfg.sel)
+    nlist, ovf = jax_neighbors.brute_force_neighbors(
+        jnp.asarray(pos, jnp.float32), jnp.asarray(typ), spec,
+        jnp.asarray(box, jnp.float32))
+    assert int(ovf) <= 0
+    return (np.asarray(pos, np.float32), np.asarray(typ, np.int32),
+            np.array(nlist), np.asarray(box, np.float32))
+
+
+def _copper(cfg, jitter=0.05, seed=0):
+    pos, typ, box = jax_lattice.fcc_copper(2, 2, 2)
+    rng = np.random.default_rng(seed)
+    return _system(cfg, np.mod(pos + rng.normal(0, jitter, pos.shape), box),
+                   typ, box)
+
+
+def _water(cfg):
+    pos, typ, box = jax_lattice.water_box(1, 1, 1, seed=0)
+    return _system(cfg, pos, typ, box)
+
+
+def _both(cfg, seed, tabulate):
+    """The reference's params (tabulated if asked) and their port copy."""
+    p = jax_dp.init_dp_params(jax.random.PRNGKey(seed), cfg)
+    if tabulate:
+        p = jax_dp.tabulate_model(p, cfg, "cheb")
+    return p, bridge.params_from_numpy(_to_numpy(p), device=CPU)
+
+
+def _compare(cfg, system, impl, seed=0):
+    pos, typ, nlist, box = system
+    p_jax, p_t = _both(cfg, seed, impl != "mlp")
+    e_j, f_j, w_j = jax_dp.dp_energy_forces(
+        p_jax, cfg, jnp.asarray(pos), jnp.asarray(nlist), jnp.asarray(typ),
+        jnp.asarray(box), impl=impl)
+    e_t, f_t, w_t = dp_model.dp_energy_forces(
+        p_t, cfg, torch.from_numpy(pos), torch.from_numpy(nlist).long(),
+        torch.from_numpy(typ).long(), torch.from_numpy(box), impl=impl)
+    np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-5)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=2e-5)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=2e-4)
+
+
+@pytest.mark.parametrize("impl", ["mlp", "cheb", "cheb_pallas"])
+def test_energy_forces_virial_copper(tiny_cfg, impl):
+    _compare(tiny_cfg, _copper(tiny_cfg), impl)
+
+
+@pytest.mark.parametrize("impl", ["mlp", "cheb", "cheb_pallas"])
+def test_energy_forces_virial_water(tiny_water_cfg, impl):
+    """Two neighbor-type sections (strided section views before the fused
+    wrapper) and the per-center-type fitting mix."""
+    _compare(tiny_water_cfg, _water(tiny_water_cfg), impl, seed=1)
+
+
+@pytest.mark.parametrize("impl", ["mlp", "cheb_pallas"])
+def test_energy_forces_water_two_sided_nets(tiny_water_cfg, impl):
+    """type_one_side=False: one T per center type, mixed with ``where``."""
+    cfg = dataclasses.replace(tiny_water_cfg, type_one_side=False)
+    _compare(cfg, _water(cfg), impl, seed=2)
+
+
+def test_atomic_energy_per_atom(tiny_cfg):
+    pos, typ, nlist, box = _copper(tiny_cfg, seed=3)
+    p_jax, p_t = _both(tiny_cfg, 0, False)
+    rij, nmask = jax_dp.gather_rij(jnp.asarray(pos), jnp.asarray(nlist),
+                                   jnp.asarray(box))
+    e_j = jax_dp.dp_atomic_energy(p_jax, tiny_cfg, rij, nmask,
+                                  jnp.asarray(typ), impl="mlp")
+    rij_t, nmask_t = dp_model.gather_rij(torch.from_numpy(pos),
+                                         torch.from_numpy(nlist).long(),
+                                         torch.from_numpy(box))
+    np.testing.assert_allclose(rij_t.numpy(), np.asarray(rij), atol=1e-6)
+    assert (nmask_t.numpy() == np.asarray(nmask)).all()
+    e_t = dp_model.dp_atomic_energy(p_t, tiny_cfg, rij_t, nmask_t,
+                                    torch.from_numpy(typ).long(), impl="mlp")
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_nsel_norm_pins_descriptor_normalization(tiny_cfg):
+    """An escalated slot layout (more -1 padding) with nsel_norm pinned to
+    the native capacity gives the same energy and forces."""
+    pos, typ, nlist, box = _copper(tiny_cfg, seed=4)
+    _, p_t = _both(tiny_cfg, 0, True)
+    args = (torch.from_numpy(pos),)
+    rest = (torch.from_numpy(typ).long(), torch.from_numpy(box))
+    e0, f0, _ = dp_model.dp_energy_forces(
+        p_t, tiny_cfg, *args, torch.from_numpy(nlist).long(), *rest,
+        impl="cheb_pallas")
+    wide = np.concatenate([nlist, -np.ones((nlist.shape[0], 32), nlist.dtype)],
+                          axis=1)
+    cfg_wide = dataclasses.replace(tiny_cfg, sel=(wide.shape[1],))
+    e1, f1, _ = dp_model.dp_energy_forces(
+        p_t, cfg_wide, *args, torch.from_numpy(wide).long(), *rest,
+        impl="cheb_pallas", nsel_norm=tiny_cfg.nsel)
+    np.testing.assert_allclose(float(e1), float(e0), rtol=1e-6)
+    np.testing.assert_allclose(f1.numpy(), f0.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("cfg_name", ["tiny_cfg", "tiny_water_cfg"])
+def test_cheb_table_matches_reference(cfg_name, request):
+    cfg = request.getfixturevalue(cfg_name)
+    p_jax = jax_dp.init_dp_params(jax.random.PRNGKey(5), cfg)
+    t_jax = jax_dp.tabulate_model(p_jax, cfg, "cheb")["table"]["nets"]
+    p_t = bridge.params_from_numpy(_to_numpy(p_jax), device=CPU)
+    t_t = dp_model.tabulate_model(p_t, cfg, "cheb")["table"]["nets"]
+    assert set(t_t) == set(t_jax)
+    for key, tab in t_jax.items():
+        np.testing.assert_allclose(t_t[key]["coeffs"].numpy(),
+                                   np.asarray(tab["coeffs"]), rtol=1e-5,
+                                   atol=1e-5)
+        assert (t_t[key]["lower"], t_t[key]["upper"]) == \
+            (tab["lower"], tab["upper"])
+
+
+def test_init_matches_reference_layout(tiny_water_cfg):
+    """Same keys, shapes and dtypes as the reference pytree; DeePMD scales."""
+    p_jax = jax_dp.init_dp_params(jax.random.PRNGKey(0), tiny_water_cfg)
+    p_t = dp_model.init_dp_params(torch.Generator().manual_seed(0),
+                                  tiny_water_cfg, device=CPU)
+    flat_j = jax.tree_util.tree_flatten_with_path(p_jax)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda x: x.numpy(), p_t))[0]
+    assert [k for k, _ in flat_j] == [k for k, _ in flat_t]
+    for (_, a), (_, b) in zip(flat_j, flat_t):
+        assert a.shape == b.shape and str(a.dtype) == str(b.dtype)
+    big = layers.init_linear(torch.Generator().manual_seed(1), 400, 600,
+                             torch.float32, torch.device(CPU))
+    assert abs(float(big["w"].std()) - 1 / 1000 ** 0.5) < 2e-3
+    assert abs(float(big["b"].std()) - 0.1) < 2e-2
+
+
+def test_env_stats_match_reference(tiny_water_cfg):
+    pos, typ, nlist, box = _water(tiny_water_cfg)
+    rij, nmask = jax_dp.gather_rij(jnp.asarray(pos), jnp.asarray(nlist),
+                                   jnp.asarray(box))
+    env, _ = jax_descriptor.env_matrix(rij, nmask, tiny_water_cfg.rcut_smth,
+                                       tiny_water_cfg.rcut)
+    d_j = jax_descriptor.compute_env_stats(env, nmask, jnp.asarray(typ), 2)
+    env_t, _ = descriptor.env_matrix(torch.from_numpy(np.array(rij)),
+                                     torch.from_numpy(np.array(nmask)),
+                                     tiny_water_cfg.rcut_smth,
+                                     tiny_water_cfg.rcut)
+    np.testing.assert_allclose(env_t.numpy(), np.asarray(env), atol=1e-6)
+    d_t = descriptor.compute_env_stats(env_t, torch.from_numpy(
+        np.array(nmask)), torch.from_numpy(typ).long(), 2)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5)
