@@ -7,13 +7,16 @@ Phases; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); build the dp_fused CUDA
      kernels from ``src/repro_torch/kernels/dp_fused/csrc`` and print the
      build time and nvcc's register/shared-memory report.
-  2. each kernel against its plain version (``ref.py``) at the copper
-     slice's shapes: K=32, M=128, 4,096 atoms of env/s rows taken from a
-     32,000-atom copper configuration, at N=512 and at the escalated N the
-     main path runs. Ragged counts with NaN poison past each count (those
-     slots must never be read). Times: kernel, plain version, and the
-     cuBLAS-backed composition that materialises G (the yardstick; it is
-     several calls, so the JSON line's ``library_ms`` is null).
+  2. each kernel against its plain version (``ref.py``, run in 4,096-row
+     chunks) at the copper slice's shapes, K=32, M=128, on env/s rows of a
+     32,000-atom copper configuration: 4,096 rows at N=512 and at the
+     escalated N, then all 32,000 rows at the escalated N, the shape the
+     main path runs. Zeros past each count; ragged counts with NaN poison
+     past each count (those slots must never be read). Times: kernel, plain
+     version, bound and share of the bound at each shape, and on the 4,096
+     rows the cuBLAS-backed composition that materialises G (the yardstick;
+     it is several calls, so the JSON line's ``library_ms`` is null). The
+     JSON line reports the main path's shape.
   3. the main path: ``Simulation.run`` of the paper's copper protocol (NVE,
      330 K, 99 steps, rebuild every 50 with a 2 A skin) on fcc_copper(20,20,20)
      = 32,000 atoms at full COPPER_DP width, impl="cheb_pallas", weights
@@ -103,8 +106,8 @@ def phase_card_and_build():
 # ------------------------------------------------------------------ phase 2
 
 def copper_rows(cfg, params, dev):
-    """env/s of the first SAMPLE_ATOMS atoms of a jittered 32,000-atom copper
-    box, built with the main path's neighbor search and escalation."""
+    """env/s of all atoms of a jittered 32,000-atom copper box, built with
+    the main path's neighbor search and escalation."""
     from repro_torch.core import descriptor, dp_model
     from repro_torch.md import lattice, neighbors, stepper
 
@@ -118,10 +121,9 @@ def copper_rows(cfg, params, dev):
     with torch.no_grad():
         rij, nmask = dp_model.gather_rij(pos_t, bld.nlist,
                                          stepper.pack_box(box, dev))
-        rij, nmask = rij[:SAMPLE_ATOMS], nmask[:SAMPLE_ATOMS]
         env, s = descriptor.env_matrix(rij, nmask, cfg.rcut_smth, cfg.rcut)
-        env, s = descriptor.normalize_env(env, s, typ_t[:SAMPLE_ATOMS],
-                                          params["dstd"])
+        env, s = descriptor.normalize_env(env, s, typ_t, params["dstd"])
+        del rij, nmask
     return env, s, bld.spec.sel[0]
 
 
@@ -147,18 +149,31 @@ def library_bwd(s, env, c, dt, lo, hi):
 def bounds(live: int, a: int, n: int, k: int, m: int):
     """Least time (ms) for each kernel's work on these inputs: each input
     byte read once (live slots only), each output byte written once, and
-    the FP32 operations the live slots need, against the H100's peaks."""
+    the FP32 operations of the factored algorithm against the H100's
+    peaks. Forward: 8K (env^T B) + 3K (recurrence) per live slot, 8KM
+    (S C) per atom. Backward: ~24K per live slot (both recurrences, B D,
+    B' D, env . B'D), 8KM (C dT^T) per atom."""
     read = live * 20 + k * m * 4 + a * 4
     fwd_bytes = read + a * 4 * m * 4
-    fwd_ops = live * (2 * k * m + 8 * m + 3 * k)
+    fwd_ops = live * 11 * k + a * 8 * k * m
     bwd_bytes = read + a * 4 * m * 4 + a * n * 20
-    bwd_ops = live * (4 * k * m + 18 * m + 6 * k)
+    bwd_ops = live * 24 * k + a * 8 * k * m
     out = {}
     for name, b, f in (("dp_fused_fwd", fwd_bytes, fwd_ops),
                        ("dp_fused_bwd", bwd_bytes, bwd_ops)):
         t_b, t_f = b / PEAK_BYTES * 1e3, f / PEAK_FP32 * 1e3
         out[name] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
     return out
+
+
+def by_rows(fn, *xs):
+    """``fn`` over SAMPLE_ATOMS-row chunks of ``xs``, outputs concatenated:
+    the plain contracts work row by row, and a chunk's G and G' fit."""
+    parts = [fn(*(x[i:i + SAMPLE_ATOMS] for x in xs))
+             for i in range(0, xs[0].shape[0], SAMPLE_ATOMS)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def phase_kernels(cfg, params, dev):
@@ -168,24 +183,40 @@ def phase_kernels(cfg, params, dev):
     c = params["table"]["nets"]["0"]["coeffs"]
     k, m = c.shape
     env_all, s_all, n_esc = copper_rows(cfg, params, dev)
+    n_all = s_all.shape[0]
+
+    def plain_fwd(s, env, counts):
+        return by_rows(lambda *x: ref.fused_fwd_ref(*x[:2], c, x[2], lo, hi),
+                       s, env, counts)
+
+    def plain_bwd(s, env, counts, dt):
+        return by_rows(lambda *x: ref.fused_bwd_ref(*x[:2], c, *x[2:], lo, hi),
+                       s, env, counts, dt)
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
-    for n in sorted({min(512, n_esc), n_esc}):
-        s = s_all[:, :n].contiguous()
-        env = env_all[:, :n].contiguous()
-        a = s.shape[0]
+    # the sample at N=512 and at the escalated N, then every row of the box
+    # at the escalated N: the shape the main path gives the kernels
+    shapes = sorted({(SAMPLE_ATOMS, min(512, n_esc)), (SAMPLE_ATOMS, n_esc),
+                     (n_all, n_esc)})
+    for a, n in shapes:
+        s = s_all[:a, :n].contiguous()
+        env = env_all[:a, :n].contiguous()
         counts = ops.live_counts(s)
         live = int(counts.sum())
         dt = torch.randn((a, 4, m), generator=gen, device=dev)
         log(f"[2] A={a} N={n} K={k} M={m}: live slots {live} "
             f"({live / (a * n):.1%}), max count {int(counts.max())}")
         err_f = check_close("fwd", ops.fused_fwd(s, env, c, counts, lo, hi),
-                            ref.fused_fwd_ref(s, env, c, counts, lo, hi),
-                            1e-4, 1e-5)
+                            plain_fwd(s, env, counts), 1e-4, 1e-5)
         ds, denv = ops.fused_bwd(s, env, c, counts, dt, lo, hi)
-        ds_r, denv_r = ref.fused_bwd_ref(s, env, c, counts, dt, lo, hi)
+        ds_r, denv_r = plain_bwd(s, env, counts, dt)
         err_b = max(check_close("bwd ds", ds, ds_r, 3e-4, 3e-5),
                     check_close("bwd denv", denv, denv_r, 3e-4, 3e-5))
+        past = torch.arange(n, device=dev)[None, :] >= counts[:, None]
+        if bool(ds[past].any()) or bool(denv[past].any()):
+            raise AssertionError("gradients past the count are not zero")
+        del ds, denv, ds_r, denv_r
 
         # ragged counts, NaN poison past each count
         cut = (counts.float() * torch.rand(a, generator=gen, device=dev)).int()
@@ -195,41 +226,47 @@ def phase_kernels(cfg, params, dev):
         s_p = torch.where(past, float("nan"), s)
         env_p = torch.where(past[..., None], float("nan"), env)
         check_close("ragged+poison fwd", ops.fused_fwd(s_p, env_p, c, cut, lo, hi),
-                    ref.fused_fwd_ref(s_c, env_c, c, cut, lo, hi), 1e-4, 1e-5)
+                    plain_fwd(s_c, env_c, cut), 1e-4, 1e-5)
         ds_p, denv_p = ops.fused_bwd(s_p, env_p, c, cut, dt, lo, hi)
-        ds_c, denv_c = ref.fused_bwd_ref(s_c, env_c, c, cut, dt, lo, hi)
+        ds_c, denv_c = plain_bwd(s_c, env_c, cut, dt)
         check_close("ragged+poison ds", ds_p, ds_c, 3e-4, 3e-5)
         check_close("ragged+poison denv", denv_p, denv_c, 3e-4, 3e-5)
         if bool(ds_p[past].any()) or bool(denv_p[past].any()):
             raise AssertionError("gradients past the count are not zero")
-        del s_c, env_c, s_p, env_p, ds_p, denv_p, ds_c, denv_c, ds_r, denv_r
+        del s_c, env_c, s_p, env_p, ds_p, denv_p, ds_c, denv_c, past
 
+        # the plain version runs in row chunks: 2 timed calls at full size;
+        # the cuBLAS composition materialises G whole, so only the sample
+        sample = a == SAMPLE_ATOMS
+        reps = 5 if sample else 2
         t = {
             "dp_fused_fwd": (
                 time_ms(lambda: ops.fused_fwd(s, env, c, counts, lo, hi), 20),
-                time_ms(lambda: ref.fused_fwd_ref(s, env, c, counts, lo, hi), 5),
-                time_ms(lambda: library_fwd(s, env, c, lo, hi), 5), err_f),
+                time_ms(lambda: plain_fwd(s, env, counts), reps),
+                time_ms(lambda: library_fwd(s, env, c, lo, hi), 5)
+                if sample else None, err_f),
             "dp_fused_bwd": (
                 time_ms(lambda: ops.fused_bwd(s, env, c, counts, dt, lo, hi), 20),
-                time_ms(lambda: ref.fused_bwd_ref(s, env, c, counts, dt, lo, hi),
-                        5),
-                time_ms(lambda: library_bwd(s, env, c, dt, lo, hi), 5), err_b),
+                time_ms(lambda: plain_bwd(s, env, counts, dt), reps),
+                time_ms(lambda: library_bwd(s, env, c, dt, lo, hi), 5)
+                if sample else None, err_b),
         }
         bnd = bounds(live, a, n, k, m)
         for name, (ms, plain_ms, lib_ms, err) in t.items():
+            lib = "not timed" if lib_ms is None else f"{lib_ms:.4f} ms"
             log(f"  {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-                f"cuBLAS composition {lib_ms:.4f} ms | bound {bnd[name][0]:.4f}"
+                f"cuBLAS composition {lib} | bound {bnd[name][0]:.4f}"
                 f" ms ({bnd[name][1]}) | {bnd[name][0] / ms:.1%} of bound")
             # no single PyTorch call computes this function, so the
             # composition is printed above but library_ms stays null
-            results[(name, n)] = {
+            results[(name, a, n)] = {
                 "name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[name][0],
                 "bound_by": bnd[name][1], "library_ms": None}
-        del s, env, dt, ds, denv
+        del s, env, dt
         torch.cuda.empty_cache()
-    return {name: results[(name, n_esc)] for name in REPLACES}, n_esc
+    return {name: results[(name, n_all, n_esc)] for name in REPLACES}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -319,7 +356,10 @@ def profile_force_eval(cfg, params, dev, pos, typ, box):
         return
     log(f"    profile: one force evaluation {wall:.3f} ms wall, {dev_ms:.3f}"
         f" ms device time in kernels ({dev_ms / wall:.1%} busy)")
-    for e in rows[:12]:
+    # the twelve largest, and the dp_fused kernels wherever they rank
+    fused = [e for e in rows[12:] if "fwd_kernel" in e.key
+             or "bwd_kernel" in e.key]
+    for e in rows[:12] + fused:
         log(f"      {dev_us(e) / 3e3:8.3f} ms  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
 
@@ -388,7 +428,7 @@ def main() -> int:
     params = tabulate_model(
         init_dp_params(torch.Generator().manual_seed(SEED), COPPER_DP,
                        device=dev), COPPER_DP, "cheb")
-    kernels, n_esc = phase_kernels(COPPER_DP, params, dev)
+    kernels = phase_kernels(COPPER_DP, params, dev)
     launches = phase_main_path(COPPER_DP, params, dev)
     phase_rungs(COPPER_DP, params, dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -175,3 +175,82 @@ def test_plain_path_launches_no_kernel():
     out = ops.fused_env_tab_contract(env, s, coeffs, LOWER, UPPER)
     out.sum().backward()
     assert (ops.fwd_launches, ops.bwd_launches) == before
+
+
+def _factored_fwd(s, env, coeffs, counts, lower, upper):
+    """The CUDA forward's order: S = sum_n env^T B, then T = S C."""
+    live = torch.arange(s.shape[1])[None, :] < counts[:, None]
+    s = torch.where(live, s, 0.0)
+    env = torch.where(live[..., None], env, 0.0)
+    u = ((2.0 * s - lower - upper) / (upper - lower)).clamp(-1.0, 1.0)
+    basis, _ = ref.cheb_basis_pair(u, coeffs.shape[0])
+    return torch.einsum("anc,ank->ack", env, basis) @ coeffs
+
+
+def _factored_bwd(s, env, coeffs, counts, dt, lower, upper):
+    """The CUDA backward's order: D = C dT^T, then denv = B D and
+    ds = 2/(hi-lo) [|u_raw|<1] env . (B' D); zero past the counts."""
+    live = torch.arange(s.shape[1])[None, :] < counts[:, None]
+    s = torch.where(live, s, 0.0)
+    env = torch.where(live[..., None], env, 0.0)
+    u_raw = (2.0 * s - lower - upper) / (upper - lower)
+    basis, dbasis = ref.cheb_basis_pair(u_raw.clamp(-1.0, 1.0),
+                                        coeffs.shape[0])
+    d = torch.einsum("km,acm->akc", coeffs, dt)                   # (A, K, 4)
+    denv = basis @ d
+    ds = (env * (dbasis @ d)).sum(-1)
+    ds = torch.where(live & (u_raw.abs() < 1.0), ds * (2.0 / (upper - lower)),
+                     0.0)
+    return ds, torch.where(live[..., None], denv, 0.0)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_factored_order_matches_contracts_and_pallas(seed):
+    """The CUDA kernels' factored order, T = (sum_n env^T B) C and
+    D = C dT^T, in plain torch at copper width (K=32, M=128) with ragged
+    counts and NaN past them, against ref.py's materialising contracts and
+    the reference's Pallas kernel (interpret mode). Tolerances are those of
+    the card test (tests/test_torch_cuda.py): every path sums in another f32
+    order, over up to 128 slots and 32 basis terms."""
+    a, n, k, m = 16, 128, 32, 128
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, n + 1, a)
+    counts[:2] = (0, n)
+    s, env, coeffs = _mk_inputs(seed, a, n, k, m, counts=counts)
+    dt = rng.normal(size=(a, 4, m)).astype(np.float32)
+    past = np.arange(n)[None, :] >= counts[:, None]
+    s_p, env_p = s.copy(), env.copy()
+    s_p[past] = np.nan
+    env_p[past] = np.nan
+    args = [torch.from_numpy(x) for x in (s_p, env_p, coeffs)]
+    cnt = torch.from_numpy(counts.astype(np.int32))
+    c, dt_t = args[2], torch.from_numpy(dt)
+
+    out = _factored_fwd(*args, cnt, LOWER, UPPER)
+    want = ref.fused_fwd_ref(*args, cnt, LOWER, UPPER)
+    torch.testing.assert_close(out, want, rtol=2e-5,
+                               atol=2e-5 * max(1.0, float(want.abs().max())))
+    # the Pallas kernel gets the clean rows: it skips whole tiles only
+    kernel = _jax_fwd(env, s, coeffs)
+    np.testing.assert_allclose(out.numpy(), kernel, rtol=2e-5,
+                               atol=2e-5 * max(1.0, np.abs(kernel).max()))
+
+    ds, denv = _factored_bwd(*args, cnt, dt_t, LOWER, UPPER)
+    ds_r, denv_r = ref.fused_bwd_ref(*args, cnt, dt_t, LOWER, UPPER)
+    for got, ref_ in ((ds, ds_r), (denv, denv_r)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref_, rtol=3e-4, atol=3e-5 * max(
+            1.0, float(ref_.abs().max())))
+    assert not ds.numpy()[past].any() and not denv.numpy()[past].any()
+
+    _, vjp = jax.vjp(
+        lambda e, x: jax_ops.fused_env_tab_contract(
+            e, x, jnp.asarray(coeffs), LOWER, UPPER),
+        jnp.asarray(env), jnp.asarray(s))
+    denv_j, ds_j = (np.asarray(g) for g in vjp(jnp.asarray(dt)))
+    live = ~past
+    for got, want_j in ((ds.numpy(), ds_j), (denv.numpy(), denv_j)):
+        np.testing.assert_allclose(
+            got[live], want_j[live], rtol=3e-4,
+            atol=3e-5 * max(1.0, np.abs(want_j[live]).max()))
+
