@@ -3,13 +3,12 @@
 The implementation ladder follows the paper's optimization story:
 
   impl="mlp"         baseline — full embedding-net matmuls, G materialized
+  impl="quintic"     + Sec. 3.2 tabulation (fifth-order polynomials)
   impl="cheb"        + Chebyshev tabulation (basis matmul, plain torch)
   impl="cheb_pallas" + Sec. 3.4.1 kernel fusion and Sec. 3.4.2 redundancy
                        removal: the hand-written CUDA kernel pair in
                        ``repro_torch.kernels.dp_fused`` (G never
                        materialized). The rung keeps the reference's name.
-
-The quintic rung is not ported yet (ROADMAP.md §A.7).
 """
 
 from __future__ import annotations
@@ -22,9 +21,6 @@ from repro_torch.core import descriptor, embedding, fitting, tabulation
 from repro_torch.core.types import DPConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
-
-_QUINTIC = "the quintic rung is not ported yet (ROADMAP.md §A.7)"
-
 
 def _dtype(cfg: DPConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -49,24 +45,28 @@ def init_dp_params(gen: torch.Generator, cfg: DPConfig,
 
 
 def tabulate_model(params: Dict[str, Any], cfg: DPConfig,
-                   kind: str = "quintic",
+                   kind: str = "quintic", step: Optional[float] = None,
                    order: Optional[int] = None) -> Dict[str, Any]:
     """Compress the embedding nets into tables (paper Sec. 3.2).
 
     Returns a new params dict with a "table" entry on the params' device;
     the embedding MLP weights are kept but unused by tabulated impls.
     """
-    if kind == "quintic":
-        raise NotImplementedError(_QUINTIC)
-    if kind != "cheb":
+    if kind not in ("quintic", "cheb"):
         raise ValueError(f"unknown table kind {kind}")
     dev = params["dstd"].device
     tables = {}
     with torch.no_grad():
         for idx, net in params["embed"].items():
-            tables[idx] = tabulation.build_cheb_table(
-                embedding.embedding_scalar_fn(net), cfg.table_lower,
-                cfg.table_upper, order or cfg.cheb_order, dev)
+            g = embedding.embedding_scalar_fn(net)
+            if kind == "quintic":
+                tables[idx] = tabulation.build_quintic_table(
+                    g, cfg.table_lower, cfg.table_upper,
+                    step or cfg.table_step, dev)
+            else:
+                tables[idx] = tabulation.build_cheb_table(
+                    g, cfg.table_lower, cfg.table_upper,
+                    order or cfg.cheb_order, dev)
     out = dict(params)
     out["table"] = {"nets": tables}
     return out
@@ -93,7 +93,8 @@ def _t_matrix_onetype(params, cfg: DPConfig, impl: str, center_type: int,
                 g_sec = tabulation.cheb_eval(params["table"]["nets"][key],
                                              s_sec)
             elif impl == "quintic":
-                raise NotImplementedError(_QUINTIC)
+                g_sec = tabulation.quintic_eval(
+                    params["table"]["nets"][key], s_sec)
             else:
                 raise ValueError(f"unknown impl {impl!r}")
             part = torch.einsum("...na,...nm->...am", env_sec, g_sec)
@@ -160,13 +161,11 @@ def gather_rij(pos: torch.Tensor, nlist: torch.Tensor,
     return rij, nmask
 
 
-def dp_energy_forces(params: Dict[str, Any], cfg: DPConfig, pos: torch.Tensor,
-                     nlist: torch.Tensor, atype: torch.Tensor,
-                     box: Optional[torch.Tensor] = None,
-                     impl: Optional[str] = None,
-                     nsel_norm: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-process energy, forces, virial.
+def energy_forces_from_rij(energy_of_rij, pos: torch.Tensor,
+                           nlist: torch.Tensor,
+                           box: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Energy, forces and virial of any pair-list energy ``E(r_ij, nmask)``.
 
     Forces come from reverse-mode autodiff with respect to r_ij (the paper's
     backward propagation); the virial is the pair-wise contraction
@@ -174,15 +173,14 @@ def dp_energy_forces(params: Dict[str, Any], cfg: DPConfig, pos: torch.Tensor,
     the returned tensors are detached.
 
     Forces are scattered with ``index_add_``, which uses atomics on the card,
-    so their summation order (and last bits) varies from run to run.
+    so their summation order (and last bits) varies from run to run. Padded
+    slots add their zero into atom 0, as in the reference.
     """
-    amask = torch.ones(pos.shape[0], dtype=_dtype(cfg), device=pos.device)
     with torch.no_grad():
         rij, nmask = gather_rij(pos, nlist, box)
     with torch.enable_grad():
         rij = rij.requires_grad_(True)
-        e = dp_energy(params, cfg, rij, nmask, atype, amask, impl,
-                      nsel_norm=nsel_norm)
+        e = energy_of_rij(rij, nmask)
         (de_drij,) = torch.autograd.grad(e, rij)
 
     # Pair forces: f_ij = -dE/dr_ij acts on atom j, reaction +dE/dr_ij on i.
@@ -192,3 +190,23 @@ def dp_energy_forces(params: Dict[str, Any], cfg: DPConfig, pos: torch.Tensor,
     f = f + de.sum(dim=1)
     virial = -torch.einsum("ijk,ijl->kl", rij.detach(), de)
     return e.detach(), f, virial
+
+
+def dp_energy_forces(params: Dict[str, Any], cfg: DPConfig, pos: torch.Tensor,
+                     nlist: torch.Tensor, atype: torch.Tensor,
+                     box: Optional[torch.Tensor] = None,
+                     impl: Optional[str] = None,
+                     nsel_norm: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-process energy, forces, virial (see ``energy_forces_from_rij``).
+
+    ``nsel_norm`` pins the descriptor normalization to the model's native
+    neighbor capacity when ``cfg.sel`` has been escalated past it.
+    """
+    amask = torch.ones(pos.shape[0], dtype=_dtype(cfg), device=pos.device)
+
+    def energy(rij, nmask):
+        return dp_energy(params, cfg, rij, nmask, atype, amask, impl,
+                         nsel_norm=nsel_norm)
+
+    return energy_forces_from_rij(energy, pos, nlist, box)

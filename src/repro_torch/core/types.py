@@ -33,7 +33,7 @@ class DPConfig:
 
     # --- implementation selection (the paper's optimization ladder) ---
     # "mlp"         : baseline, full embedding-net matmuls (pre-optimization)
-    # "quintic"     : fifth-order polynomial tabulation (not ported yet)
+    # "quintic"     : fifth-order polynomial tabulation (paper Sec. 3.2)
     # "cheb"        : Chebyshev basis-matmul tabulation (plain torch)
     # "cheb_pallas" : the fused tabulation + R~^T G contraction kernel; in
     #                 this package a hand-written CUDA kernel (the rung keeps

@@ -10,7 +10,11 @@ Tables are post-training artifacts (paper Sec. 3.2), so the coefficients get
 no gradient; forces (dE/dpositions) flow through s and env.
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches (not plain-path
-calls), so a run can show that it went through the kernels.
+calls), so a run can show that it went through the kernels. A call made
+while the current stream is being captured into a CUDA graph launches
+nothing: it counts in ``fwd_captured``/``bwd_captured`` instead, and the
+graph's owner adds what one replay launches with :func:`count_replay` each
+time it replays the graph (``md/stepper.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,15 @@ from repro_torch.kernels.dp_fused import build, ref
 
 fwd_launches = 0
 bwd_launches = 0
+fwd_captured = 0
+bwd_captured = 0
+
+
+def count_replay(fwd: int, bwd: int) -> None:
+    """A replay of a graph that recorded ``fwd``/``bwd`` launches ran them."""
+    global fwd_launches, bwd_launches
+    fwd_launches += fwd
+    bwd_launches += bwd
 
 
 def live_counts(s: torch.Tensor) -> torch.Tensor:
@@ -69,7 +82,7 @@ def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
               counts: torch.Tensor, lower: float, upper: float
               ) -> torch.Tensor:
     """T (A, 4, M) from s (A, N), env (A, N, 4), C (K, M), counts (A,)."""
-    global fwd_launches
+    global fwd_launches, fwd_captured
     a, n, k, m = _check_inputs(s, env, coeffs, counts)
     if s.device.type == "cpu":
         return ref.fused_fwd_ref(s, env, coeffs, counts, lower, upper)
@@ -84,7 +97,10 @@ def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
             counts.data_ptr(), out.data_ptr(), a, n, k, m, float(lower),
             float(upper), stream)
     kl.check(code, "dp_fused_fwd launch")
-    fwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fwd_captured += 1
+    else:
+        fwd_launches += 1
     return out
 
 
@@ -92,7 +108,7 @@ def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
               counts: torch.Tensor, dt: torch.Tensor, lower: float,
               upper: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """ds (A, N) and denv (A, N, 4) from dT (A, 4, M); zero past counts."""
-    global bwd_launches
+    global bwd_launches, bwd_captured
     a, n, k, m = _check_inputs(s, env, coeffs, counts)
     _require(dt, "dt", (a, 4, m), torch.float32, s.device)
     if s.device.type == "cpu":
@@ -109,7 +125,10 @@ def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
             counts.data_ptr(), dt.data_ptr(), ds.data_ptr(), denv.data_ptr(),
             a, n, k, m, float(lower), float(upper), stream)
     kl.check(code, "dp_fused_bwd launch")
-    bwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        bwd_captured += 1
+    else:
+        bwd_launches += 1
     return ds, denv
 
 

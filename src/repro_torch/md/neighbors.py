@@ -129,13 +129,19 @@ def make_cell_list_fn(spec: NeighborSpec, box: np.ndarray,
     offsets_np = np.stack(
         np.meshgrid(*[[-1, 0, 1]] * 3, indexing="ij"), axis=-1
     ).reshape(-1, 3)                                   # (27, 3)
+    # host constants copied to each device once: a copy from host memory
+    # cannot run under CUDA-graph capture, so the first (eager) call makes
+    # them and a captured call finds them here
+    consts = {}
 
     def core(pos, atype, box_t):
         n = pos.shape[0]
         dev = pos.device
         cap = spec.cell_capacity
-        ncell_t = torch.as_tensor(ncell, device=dev)
-        offsets = torch.as_tensor(offsets_np, device=dev)
+        if dev not in consts:
+            consts[dev] = (torch.as_tensor(ncell, device=dev),
+                           torch.as_tensor(offsets_np, device=dev))
+        ncell_t, offsets = consts[dev]
         cell_size = box_t / ncell_t.to(box_t.dtype)
         # grid validity under a moving box: every cell dim must still cover
         # the cutoff, or the +/-1 stencil silently misses pairs

@@ -1,27 +1,38 @@
-"""Segment stepping engine: the MD inner loop between neighbor rebuilds.
+"""MD stepping engines: the inner loop between neighbor rebuilds, and the
+outer engine that folds the rebuild in.
 
-The counterpart of ``repro.md.stepper``'s segment engine. Where the
-reference scans a jitted step over a ``rebuild_every``-step segment, this
-engine runs the step in a Python loop under ``torch.no_grad()``; the
-per-step thermo stays on the device, stacked, and the host fetches it ONCE
-per segment (:func:`fetch_thermo`). Neighbor overflow is checked at segment
-boundaries with a capacity-escalation retry: capacities grow geometrically
-and the list is rebuilt from the same, still valid, positions. The
-descriptor normalization stays pinned to the model's native ``cfg.nsel``
-(``nsel_norm``), so escalated capacities change padding, never physics.
+The counterpart of ``repro.md.stepper``. Where the reference scans a jitted
+step over a ``rebuild_every``-step segment, :class:`SegmentEngine` runs the
+step in a Python loop under ``torch.no_grad()``; the per-step thermo stays
+on the device, stacked, and the host fetches it ONCE per segment
+(:func:`fetch_thermo`). Neighbor overflow is checked at segment boundaries
+with a capacity-escalation retry: capacities grow geometrically (by the
+carried box's volume ratio too, under a barostat) and the list is rebuilt
+from the same, still valid, positions. The descriptor normalization stays
+pinned to the model's native ``cfg.nsel`` (``nsel_norm``), so escalated
+capacities change padding, never physics.
 
-No barostat: the box is carried but never moves (ROADMAP.md §A.10).
+:class:`OuterEngine` is the counterpart of the reference's jitted scan over
+segments: one segment is the neighbor rebuild at the carried positions and
+box followed by ``seg_len`` steps, with the overflow flag kept on the
+device. On the card each segment is captured once as a CUDA graph and
+replayed; on the CPU the same segment function runs eagerly.
+
+The box rides in the carry; a barostat rescales it after each step's
+thermostat, and the thermo streams the stress tensor, pressure and volume.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import DPConfig
+from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 from repro_torch.md import api, integrator, neighbors
 
 
@@ -39,29 +50,40 @@ def segment_schedule(steps: int, rebuild_every: int) -> List[int]:
     return sched
 
 
+def run_steps(step_fn: Callable, carry: Any, n_steps: int, *aux: Any):
+    """``n_steps`` of ``step_fn(carry, *aux) -> (carry, per_step_out)``.
+
+    The per-step outputs come back stacked with a leading ``(n_steps,)``
+    dim; nothing here waits for the device.
+    """
+    outs = []
+    for _ in range(n_steps):
+        carry, out = step_fn(carry, *aux)
+        outs.append(out)
+    return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 class SegmentEngine:
     """Runs ``step_fn(carry, *aux) -> (carry, per_step_out)`` for ``n_steps``.
 
     The loop runs under ``torch.no_grad()`` (forces take their own graph
-    inside the potential, so no graph survives a step). Per-step outputs
-    come back stacked on the device with a leading ``(n_steps,)`` dim;
-    nothing in the loop waits for the device.
+    inside the potential, so no graph survives a step).
     """
 
     def __init__(self, step_fn: Callable):
         self._step_fn = step_fn
 
     def run(self, carry: Any, n_steps: int, *aux: Any):
-        outs = []
         with torch.no_grad():
-            for _ in range(n_steps):
-                carry, out = self._step_fn(carry, *aux)
-                outs.append(out)
-        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            return run_steps(self._step_fn, carry, n_steps, *aux)
 
 
 def fetch_thermo(th: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Copy a segment's stacked thermo to the host in ONE transfer."""
+    """Copy stacked thermo to the host in ONE transfer.
+
+    Every entry shares the leading dim; each comes back as float32 with its
+    own shape.
+    """
     keys = list(th)
     n = th[keys[0]].shape[0]
     flat = torch.cat([th[k].reshape(n, -1).to(torch.float32) for k in keys],
@@ -83,14 +105,24 @@ class EscalationPolicy:
     max_attempts: int = 6
     round_to: int = 8
 
-    def grow(self, n: int) -> int:
-        """Grow ``n`` by ``growth``, rounded up to a multiple of ``round_to``.
+    def grow(self, n: int, scale: float = 1.0) -> int:
+        """Grow ``n`` by ``max(growth, scale)``, rounded up to ``round_to``.
 
-        (The reference also folds a box-volume ratio in here; that comes
-        with the barostats, ROADMAP.md §A.10.)
+        ``scale`` folds an external density factor into the decision — the
+        launch-volume / carried-volume ratio under a barostat squeeze — so
+        a replay jumps straight to a capacity that holds the current
+        density.
         """
-        n_new = max(int(n * self.growth), n + 1)
+        factor = max(self.growth, float(scale))
+        n_new = max(int(n * factor), n + 1)
         return -(-n_new // self.round_to) * self.round_to
+
+    @staticmethod
+    def volume_scale(box_ref, box_now) -> float:
+        """Launch-volume / current-volume, clamped >= 1 (grow-only)."""
+        v0 = float(np.prod(np.asarray(box_ref, float).reshape(-1)))
+        v1 = float(np.prod(np.asarray(box_now, float).reshape(-1)))
+        return max(v0 / max(v1, 1e-30), 1.0)
 
 
 class NeighborBuild(NamedTuple):
@@ -124,6 +156,7 @@ def build_neighbors_escalating(
     cfg: DPConfig, spec: neighbors.NeighborSpec, box: np.ndarray,
     pos: torch.Tensor, typ: torch.Tensor,
     policy: Optional[EscalationPolicy] = None,
+    ref_box: Optional[np.ndarray] = None,
 ) -> NeighborBuild:
     """Build the neighbor list; on overflow escalate capacities and retry.
 
@@ -132,12 +165,15 @@ def build_neighbors_escalating(
     capacity and the cell-bin capacity, then rebuilds from the same
     positions. The returned ``cfg_run`` carries the escalated ``sel``;
     callers evaluate it with ``nsel_norm=cfg.nsel``. The cell grid is
-    derived from ``box`` on every call (the reference's ``dynamic_box``
-    form).
+    derived from ``box`` on every call. ``ref_box`` (the box the last
+    volume fold was taken against) folds the carried-box volume ratio into
+    the first escalation.
     """
     policy = policy or EscalationPolicy()
     box_np = np.asarray(box, float).reshape(-1)
     box_t = torch.as_tensor(box_np, dtype=torch.float32, device=pos.device)
+    scale = (policy.volume_scale(ref_box, box_np)
+             if ref_box is not None else 1.0)
     escalations = 0
     worst = None
     for _ in range(policy.max_attempts):
@@ -150,8 +186,9 @@ def build_neighbors_escalating(
                        else dataclasses.replace(cfg, sel=tuple(spec.sel)))
             return NeighborBuild(nlist, cfg_run, spec, escalations, worst)
         spec = dataclasses.replace(
-            spec, sel=tuple(policy.grow(s) for s in spec.sel),
-            cell_capacity=policy.grow(spec.cell_capacity))
+            spec, sel=tuple(policy.grow(s, scale) for s in spec.sel),
+            cell_capacity=policy.grow(spec.cell_capacity, scale))
+        scale = 1.0     # the density jump is folded in once
         escalations += 1
     raise RuntimeError(
         f"neighbor capacity overflow persists after {policy.max_attempts} "
@@ -164,27 +201,31 @@ def build_neighbors_escalating(
 class MDCarry(NamedTuple):
     """State carried from step to step.
 
-    ``ens`` is the ensemble's extra state (empty for NVE); ``box`` the (3,)
-    box, which stays fixed (no barostat is ported, ROADMAP.md §A.10).
+    ``ens`` is the ensemble's extra state (a generator for Langevin, empty
+    for NVE); ``box`` the (3,) dynamic box; ``baro`` the barostat's extra
+    state.
     """
     pos: torch.Tensor     # (N, 3) A
     vel: torch.Tensor     # (N, 3) A/fs
     force: torch.Tensor   # (N, 3) eV/A
-    ens: Any
-    box: torch.Tensor     # (3,) A
+    ens: Any = ()
+    box: Any = None       # (3,) A
+    baro: Any = ()
 
 
-def make_md_step(potential: api.Potential,
-                 ensemble: api.Ensemble) -> Callable:
+def make_md_step(potential: api.Potential, ensemble: api.Ensemble,
+                 barostat: Optional[api.Barostat] = None) -> Callable:
     """One kick-drift-(force)-kick step of ``ensemble`` under ``potential``.
 
     ``(MDCarry, params, nlist, typ, masses, dt) -> (MDCarry, thermo)``; the
     thermo holds pe/ke plus the pressure observables (stress tensor (3, 3)
-    eV/A^3, scalar pressure, volume) from the potential's virial.
+    eV/A^3, scalar pressure, volume) from the potential's virial. After the
+    thermostat the ``barostat`` (if any) rescales box, positions and
+    velocities; without one the box is never touched.
     """
 
     def md_step(carry: MDCarry, params, nlist, typ, masses, dt):
-        pos, vel, f, ens, box = carry
+        pos, vel, f, ens, box, baro = carry
         vel = ensemble.half_kick(vel, f, masses, dt)
         pos = ensemble.drift(pos, vel, dt, box)
         e, f_new, stats = potential.energy_forces(params, pos, typ, nlist,
@@ -195,18 +236,261 @@ def make_md_step(potential: api.Potential,
         vol = integrator.volume_of(box)
         stress = integrator.stress_tensor(
             integrator.kinetic_tensor(vel, masses), stats["virial"], vol)
+        if barostat is not None:
+            box, pos, vel, baro = barostat.apply(box, pos, vel, stress,
+                                                 baro, dt)
         thermo = {"pe": e, "ke": ke, "stress": stress,
                   "press": integrator.pressure_of(stress), "vol": vol}
-        return MDCarry(pos, vel, f_new, ens, box), thermo
+        return MDCarry(pos, vel, f_new, ens, box, baro), thermo
 
     return md_step
 
 
-def md_segment_engine(potential: api.Potential,
-                      ensemble: api.Ensemble) -> SegmentEngine:
+def md_segment_engine(potential: api.Potential, ensemble: api.Ensemble,
+                      barostat: Optional[api.Barostat] = None
+                      ) -> SegmentEngine:
     """Engine whose step is one full kick-drift-(force)-kick MD step."""
-    return SegmentEngine(make_md_step(potential, ensemble))
+    return SegmentEngine(make_md_step(potential, ensemble, barostat))
 
+
+# ------------------------------------------------ carried state, by value
+
+def _map_state(fn_tensor, fn_gen, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn_tensor(tree)
+    if isinstance(tree, torch.Generator):
+        return fn_gen(tree)
+    if isinstance(tree, dict):
+        return {k: _map_state(fn_tensor, fn_gen, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_state(fn_tensor, fn_gen, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_state(fn_tensor, fn_gen, v) for v in tree)
+    return tree
+
+
+def generators_of(tree) -> List[torch.Generator]:
+    """Every ``torch.Generator`` in a carry (ensemble/barostat noise)."""
+    found: List[torch.Generator] = []
+    _map_state(lambda t: t, found.append, tree)
+    return found
+
+
+class Snapshot(NamedTuple):
+    """A carry by value: its tensors copied on the device (no host sync) and
+    its generators' states, so a restored chunk draws the same noise."""
+    carry: Any
+    rng: List[Tuple[torch.Generator, torch.Tensor]]
+
+
+def snapshot(carry) -> Snapshot:
+    copy = _map_state(lambda t: t.clone(), lambda g: g, carry)
+    return Snapshot(copy, [(g, g.get_state()) for g in generators_of(carry)])
+
+
+def restore(snap: Snapshot):
+    """The snapshot's carry, with every generator set back to its state.
+
+    The returned tensors are the snapshot's own; engines never write to a
+    carry they are given, so one snapshot serves any number of restores.
+    """
+    for gen, state in snap.rng:
+        gen.set_state(state)
+    return snap.carry
+
+
+# ------------------------------------------------ outer engine (segments)
+
+class OuterCarry(NamedTuple):
+    """Carry of the outer engine over segments.
+
+    ``overflow`` accumulates the worst neighbor-capacity excess seen by any
+    on-device rebuild in the chunk; it is the only value the host inspects,
+    once per chunk. ``ens``/``box``/``baro`` thread the ensemble state, the
+    dynamic box and the barostat state (a box past its static cell grid
+    surfaces through ``overflow`` as ``neighbors.GRID_INVALID``).
+    """
+    pos: torch.Tensor       # (N, 3) A
+    vel: torch.Tensor       # (N, 3) A/fs
+    force: torch.Tensor     # (N, 3) eV/A
+    overflow: torch.Tensor  # () int32
+    ens: Any = ()
+    box: Any = None         # (3,) A
+    baro: Any = ()
+
+
+def _same_inputs(a, b) -> bool:
+    """Captured inputs are baked into a graph by address: tensors and
+    dicts must be the same objects, numbers equal."""
+    return len(a) == len(b) and all(
+        x is y if isinstance(x, (torch.Tensor, dict)) else x == y
+        for x, y in zip(a, b))
+
+
+class _CapturedSegment:
+    """One segment captured as a CUDA graph over static carry buffers.
+
+    The graph reads ``static`` (the carry's tensors), runs the segment, and
+    writes the new carry back into ``static``, so replaying it n times runs
+    n segments in a row. Its thermo lands in ``thermo``, tensors of the
+    graph's memory pool that each replay overwrites.
+    """
+
+    def __init__(self, seg_fn: Callable, carry: OuterCarry, seg_len: int,
+                 aux: Tuple[Any, ...], pool=None):
+        self.aux = aux
+        self.static = snapshot(carry).carry
+        gens = generators_of(carry)
+        # warm-up on a side stream, as capture requires: one step of the
+        # segment on copies, with the generators set back afterwards. Its
+        # kernels really run and count as launches.
+        warm = snapshot(carry)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            seg_fn(warm.carry, 1, *aux)
+        torch.cuda.current_stream().wait_stream(side)
+        restore(warm)
+
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in gens:
+            if gen.device.type == "cuda":
+                # each replay then draws fresh noise from the generator's
+                # current offset, and a restored state draws the same again
+                self.graph.register_generator_state(gen)
+        f0, b0 = dp_fused_ops.fwd_captured, dp_fused_ops.bwd_captured
+        with torch.cuda.graph(self.graph, pool=pool):
+            out, th = seg_fn(self.static, seg_len, *aux)
+            self._write_back(out)
+        self.thermo = th
+        self.launches = (dp_fused_ops.fwd_captured - f0,
+                         dp_fused_ops.bwd_captured - b0)
+
+    def _write_back(self, out: OuterCarry) -> None:
+        src, dst = [], []
+        _map_state(src.append, lambda g: g, out)
+        _map_state(dst.append, lambda g: g, self.static)
+        for s, d in zip(src, dst):
+            d.copy_(s)
+
+    def load(self, carry: OuterCarry) -> None:
+        """Copy ``carry`` into the static buffers (no-op if it is them)."""
+        if carry.pos is not self.static.pos:
+            self._write_back(carry)
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        self.graph.replay()
+        dp_fused_ops.count_replay(*self.launches)
+        return {k: v.clone() for k, v in self.thermo.items()}
+
+
+class OuterEngine:
+    """Whole-trajectory MD over rebuild segments.
+
+    ``seg_fn(carry, seg_len, *aux) -> (carry, seg_out)`` runs ONE segment
+    (neighbor rebuild at current positions + ``seg_len`` steps).
+    :meth:`run` runs ``n_segments`` of them and returns their thermo stacked
+    with leading ``(n_segments, seg_len)`` dims. On a CUDA carry the segment
+    is captured as a CUDA graph once per ``seg_len`` (this engine is built
+    per sel and grid) and replayed; a failed capture raises. On a CPU carry
+    the segment runs eagerly.
+    """
+
+    def __init__(self, seg_fn: Callable):
+        self._seg_fn = seg_fn
+        self._graphs: Dict[int, _CapturedSegment] = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def run(self, carry: OuterCarry, n_segments: int, seg_len: int,
+            *aux: Any):
+        outs = []
+        with torch.no_grad():
+            if carry.pos.device.type != "cuda":
+                for _ in range(n_segments):
+                    carry, th = self._seg_fn(carry, seg_len, *aux)
+                    outs.append(th)
+            else:
+                seg = self._graphs.get(seg_len)
+                if seg is not None and not _same_inputs(seg.aux, aux):
+                    raise ValueError("the captured segment was recorded for "
+                                     "other params/types/masses/dt")
+                if seg is None:
+                    t0 = time.perf_counter()
+                    # segments of one engine share one memory pool
+                    pool = next((g.graph.pool()
+                                 for g in self._graphs.values()), None)
+                    seg = _CapturedSegment(self._seg_fn, carry, seg_len, aux,
+                                           pool)
+                    self._graphs[seg_len] = seg
+                    self.captures += 1
+                    self.capture_s += time.perf_counter() - t0
+                seg.load(carry)
+                for _ in range(n_segments):
+                    outs.append(seg.replay())
+                    self.replays += 1
+                carry = seg.static
+        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def md_outer_engine(potential: api.Potential, ensemble: api.Ensemble,
+                    spec: neighbors.NeighborSpec,
+                    grid_key: Tuple[int, ...],
+                    barostat: Optional[api.Barostat] = None) -> OuterEngine:
+    """Outer engine for the single-process driver.
+
+    Each segment rebuilds the neighbor list on the device at the
+    segment-start positions AND box from the carry (the cell grid of
+    ``grid_key`` cell counts, with cell sizes from the carried box) and then
+    runs ``seg_len`` MD steps against it. Capacity overflow cannot branch
+    inside a captured segment; it accumulates in the carry and
+    ``md/driver.py`` checks it once per chunk, replaying the chunk from a
+    snapshot with escalated capacities (``potential.sel`` == ``spec.sel``,
+    with the potential's pinned normalization) or, on ``GRID_INVALID``, a
+    grid re-derived from the box.
+    """
+    nbr_fn = _dyn_cell_list_fn(spec, grid_key)
+    md_step = make_md_step(potential, ensemble, barostat)
+
+    def outer_seg(carry: OuterCarry, seg_len: int, params, typ, masses, dt):
+        nlist, ovf = nbr_fn(carry.pos, typ, carry.box)
+        inner = MDCarry(carry.pos, carry.vel, carry.force, carry.ens,
+                        carry.box, carry.baro)
+        inner, th = run_steps(md_step, inner, seg_len,
+                              params, nlist, typ, masses, dt)
+        return OuterCarry(inner.pos, inner.vel, inner.force,
+                          torch.maximum(carry.overflow, ovf), inner.ens,
+                          inner.box, inner.baro), th
+
+    return OuterEngine(outer_seg)
+
+
+def chunk_schedule(steps: int, rebuild_every: int,
+                   chunk_segments: int) -> List[Tuple[int, int]]:
+    """Group the segment schedule into outer-engine runs.
+
+    Returns ``[(n_segments, seg_len), ...]``: full ``rebuild_every``-length
+    segments grouped ``chunk_segments`` at a time, then the trailing partial
+    segment (if any) as its own ``(1, remainder)`` run. One host sync per
+    entry.
+    """
+    if chunk_segments <= 0:
+        raise ValueError(f"chunk_segments={chunk_segments}")
+    if steps < 0 or rebuild_every <= 0:
+        raise ValueError(f"bad schedule: steps={steps} rebuild={rebuild_every}")
+    full, rem = divmod(steps, rebuild_every)
+    out: List[Tuple[int, int]] = []
+    while full > 0:
+        take = min(chunk_segments, full)
+        out.append((take, rebuild_every))
+        full -= take
+    if rem:
+        out.append((1, rem))
+    return out
+
+
+# ---------------------------------------------------------------- helpers
 
 def box_lengths(box) -> np.ndarray:
     """Host-side (3,) orthorhombic edge lengths from a box spelling.

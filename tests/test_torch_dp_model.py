@@ -55,16 +55,21 @@ def _water(cfg):
 
 
 def _both(cfg, seed, tabulate):
-    """The reference's params (tabulated if asked) and their port copy."""
+    """The reference's params (tabulated if asked: "quintic" or "cheb")
+    and their port copy."""
     p = jax_dp.init_dp_params(jax.random.PRNGKey(seed), cfg)
     if tabulate:
-        p = jax_dp.tabulate_model(p, cfg, "cheb")
+        p = jax_dp.tabulate_model(p, cfg, tabulate)
     return p, bridge.params_from_numpy(_to_numpy(p), device=CPU)
+
+
+def _table_kind(impl):
+    return {"mlp": None, "quintic": "quintic"}.get(impl, "cheb")
 
 
 def _compare(cfg, system, impl, seed=0):
     pos, typ, nlist, box = system
-    p_jax, p_t = _both(cfg, seed, impl != "mlp")
+    p_jax, p_t = _both(cfg, seed, _table_kind(impl))
     e_j, f_j, w_j = jax_dp.dp_energy_forces(
         p_jax, cfg, jnp.asarray(pos), jnp.asarray(nlist), jnp.asarray(typ),
         jnp.asarray(box), impl=impl)
@@ -76,12 +81,12 @@ def _compare(cfg, system, impl, seed=0):
     np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=2e-4)
 
 
-@pytest.mark.parametrize("impl", ["mlp", "cheb", "cheb_pallas"])
+@pytest.mark.parametrize("impl", ["mlp", "quintic", "cheb", "cheb_pallas"])
 def test_energy_forces_virial_copper(tiny_cfg, impl):
     _compare(tiny_cfg, _copper(tiny_cfg), impl)
 
 
-@pytest.mark.parametrize("impl", ["mlp", "cheb", "cheb_pallas"])
+@pytest.mark.parametrize("impl", ["mlp", "quintic", "cheb", "cheb_pallas"])
 def test_energy_forces_virial_water(tiny_water_cfg, impl):
     """Two neighbor-type sections (strided section views before the fused
     wrapper) and the per-center-type fitting mix."""
@@ -97,7 +102,7 @@ def test_energy_forces_water_two_sided_nets(tiny_water_cfg, impl):
 
 def test_atomic_energy_per_atom(tiny_cfg):
     pos, typ, nlist, box = _copper(tiny_cfg, seed=3)
-    p_jax, p_t = _both(tiny_cfg, 0, False)
+    p_jax, p_t = _both(tiny_cfg, 0, None)
     rij, nmask = jax_dp.gather_rij(jnp.asarray(pos), jnp.asarray(nlist),
                                    jnp.asarray(box))
     e_j = jax_dp.dp_atomic_energy(p_jax, tiny_cfg, rij, nmask,
@@ -117,7 +122,7 @@ def test_nsel_norm_pins_descriptor_normalization(tiny_cfg):
     """An escalated slot layout (more -1 padding) with nsel_norm pinned to
     the native capacity gives the same energy and forces."""
     pos, typ, nlist, box = _copper(tiny_cfg, seed=4)
-    _, p_t = _both(tiny_cfg, 0, True)
+    _, p_t = _both(tiny_cfg, 0, "cheb")
     args = (torch.from_numpy(pos),)
     rest = (torch.from_numpy(typ).long(), torch.from_numpy(box))
     e0, f0, _ = dp_model.dp_energy_forces(
