@@ -17,9 +17,9 @@ Phases; any failure exits non-zero before the result line:
      must never be read). Times: kernel, plain version, bound and share of
      the bound at each shape, and the cuBLAS-backed composition that
      materialises G (the yardstick; whole on the 4,096 rows, in 4,096-row
-     chunks summed at the main path's shape; it is several calls, so the
-     JSON line's ``library_ms`` is null). The JSON line reports the main
-     path's shape.
+     chunks summed at the main path's and water's shapes; it is several
+     calls, so the JSON line's ``library_ms`` is null). The JSON line
+     reports the main path's shape.
   3. the main path: ``Simulation.run`` of the paper's copper protocol (NVE,
      330 K, 99 steps, rebuild every 50 with a 2 A skin) on fcc_copper(20,20,20)
      = 32,000 atoms at full COPPER_DP width, impl="cheb_pallas", engine
@@ -49,8 +49,22 @@ Phases; any failure exits non-zero before the result line:
   9. LJ on fcc_copper(20,20,20) and fcc_copper(10,10,10), scan against
      outer: the engine-overhead case (the force evaluation is cheap),
      us/step/atom of both and a profile of one force evaluation.
+ 10. distributed copper on the one card (``md/domain.py`` under
+     ``LocalComm``: one thread and CUDA stream per rank), fcc_copper(20,20,20)
+     at full COPPER_DP width, cheb_pallas, NVE. (a) 2x2x2 bricks, model
+     axis 1: one step at jittered positions against the single-process port
+     (PE 1e-4 + 1e-5 |E|, forces 1e-5 max(1, max|F|), virial 2e-3 relative:
+     the reference harness's tolerances), then the 99-step protocol from
+     phase 3's velocities: atoms constant, drift <= 1e-4 eV/atom, thermo
+     rows against phase 3's at rtol 1e-5; (b) 4 slabs x 2 model shards,
+     the kernels on neighbor-slot slices: the same one-step parity and 10
+     steps against (a). Each kernel held against ref.py at the shape each
+     path gives it; launch counts per path, us/step/atom, peak memory and
+     the sweeps' share of the device time (torch.profiler).
 
-Prints the kernels' JSON line, then ``{"ok": true, "device": {...}}`` last.
+Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
+``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
+last.
 TF32 is off for matmuls and cuDNN throughout: every product is FP32.
 """
 
@@ -346,7 +360,7 @@ def phase_kernels(cfg, wcfg, params, dev):
                     env_w[:, a0:a1].contiguous(),
                     params_w["table"]["nets"][str(t)]["coeffs"],
                     cfg_w.table_lower, cfg_w.table_upper, dev, gen,
-                    sample=False, chunked_lib=False)
+                    sample=False, chunked_lib=True)
     del env_w, s_w
     torch.cuda.empty_cache()
     return main
@@ -799,6 +813,315 @@ def profile_lj_force_eval(dev, pos, typ, box, sel):
     log_kernels(prof, 3, "one LJ force evaluation", top=6)
 
 
+# ----------------------------------------------------------------- phase 10
+
+# (topology, model shards, atom / halo capacity): fcc_copper(20,20,20) in 8
+# bricks of 4,000 atoms (36.15 A wide), then in 4 slabs of 8,000 atoms split
+# over 2 model shards. The capacities hold the lattice's boundary layers at
+# rcut_halo = 10 A with a margin for 99 steps of motion; DomainSpec derives
+# the cell capacity from them; an overflow flag fails the phase.
+DIST_CASES = {
+    "a": dict(topology=(2, 2, 2), n_model=1, cap=4400, halo=3400),
+    "b": dict(topology=(4,), n_model=2, cap=8800, halo=5600),
+}
+
+
+def brick_rows(pos, spec):
+    """Each brick's atoms (indices into ``pos``) in the order
+    ``partition_atoms`` puts them into its slots."""
+    topo = spec.topo
+    rank = np.zeros(len(pos), np.int64)
+    for a in topo.axes:
+        w = spec.box[a] / topo.shape[a]
+        rank += np.clip((pos[:, a] / w).astype(np.int64), 0,
+                        topo.shape[a] - 1) * topo.strides[a]
+    return [np.nonzero(rank == s)[0] for s in range(spec.n_slabs)]
+
+
+class RecordRankFwd:
+    """Wraps ``ops.fused_fwd`` while a run goes through it and keeps, for
+    each of the named ranks, its first call's inputs (that rank's s/env at
+    the path's shape). ``LocalComm`` runs rank r = spatial x n_model + model
+    on a thread named ``rank{r}``, so the same ranks' inputs are kept in
+    every run, whichever thread reaches the kernel first."""
+
+    def __init__(self, ranks):
+        import threading
+
+        from repro_torch.kernels.dp_fused import ops
+        self.ops, self.orig, self.args = ops, ops.fused_fwd, {}
+        self.names = {f"rank{r}": r for r in ranks}
+        self.current = threading.current_thread
+
+    def __enter__(self):
+        def wrapped(s, env, coeffs, counts, lower, upper):
+            r = self.names.get(self.current().name)
+            if r is not None and r not in self.args:
+                self.args[r] = (s.clone(), env.clone(), coeffs, lower, upper)
+            return self.orig(s, env, coeffs, counts, lower, upper)
+        self.ops.fused_fwd = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_fwd = self.orig
+
+
+def dist_setup(cfg, case, box, dev):
+    from repro_torch.md import api, comm, domain
+
+    c = DIST_CASES[case]
+    spec = domain.DomainSpec.for_topology(
+        tuple(box), c["topology"], c["cap"], c["halo"], cfg.rcut + 2.0)
+    spec.validate()
+    lc = comm.LocalComm(spec.n_slabs, c["n_model"], device=dev)
+    pot = api.make_potential("dp", cfg, impl="cheb_pallas")
+    return spec, lc, pot
+
+
+def dist_one_step(cfg, params, dev, case, pos_j, typ, box, ref):
+    """One distributed step from rest (dt 1e-3 fs) at the jittered
+    positions: PE, carried forces and virial against the single-process
+    port at the same positions, at the reference harness's tolerances
+    (run_md_dist.py:66,79,89; forces 1e-5 max(1, max|F|) on the card).
+    Returns the first kernel call's inputs of every model shard of brick 0
+    (ranks 0..n_model-1), by model index, and the launch counts."""
+    from repro_torch.md import domain, lattice
+
+    e_ref, f_ref, w_ref = ref
+    spec, lc, pot = dist_setup(cfg, case, box, dev)
+    state, ovf = domain.partition_atoms(pos_j, np.zeros_like(pos_j), typ, spec)
+    if ovf > 0:
+        raise AssertionError(f"({case}) brick capacity overflow {ovf}")
+    step = domain.make_distributed_md_step(
+        cfg, spec, lc, (lattice.MASS["Cu"],), 1e-3, decomp="slots",
+        neighbor="cells", potential=pot)
+    boxt = torch.as_tensor(np.asarray(box, np.float32), device=dev)
+    st = domain.shard_state(state, lc, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    with RecordRankFwd(range(lc.n_model)) as rec:
+        t0 = time.perf_counter()
+        (new, _, _, _), th = step(params, st, (), boxt, ())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    flags = {k: int(th[k]) for k in ("halo_overflow", "nbr_overflow",
+                                     "geom_overflow")}
+    n_ranks = spec.n_slabs * lc.n_model
+    log(f"[10{case}] topology {spec.topo.label()} x {lc.n_model} model "
+        f"shards (slots, cells), LocalComm {n_ranks} ranks on the card: one "
+        f"step {ms:.3f} ms, launches {launches}, flags {flags}, atoms "
+        f"{int(th['n_atoms'])}, cell capacity {spec.cell_capacity}")
+    if any(v > 0 for v in flags.values()) or int(th["n_atoms"]) != len(pos_j):
+        raise AssertionError(f"({case}) overflow or atoms lost: {flags}")
+    for name, count in launches.items():
+        if count != n_ranks:
+            raise AssertionError(f"({case}) {name} launched {count} times, "
+                                 f"not once per rank ({n_ranks})")
+    de = abs(float(th["pe"]) - e_ref)
+    f_tol = 1e-5 * max(1.0, float(f_ref.abs().max()))
+    df = 0.0
+    for s, rows in enumerate(brick_rows(pos_j, spec)):
+        idx = torch.as_tensor(rows, device=dev)
+        df = max(df, float((new.force[s, :len(rows)] - f_ref[idx])
+                           .abs().max()))
+    w = th["stress"] * float(np.prod(box))
+    dw = float((w - w_ref).abs().max()) / max(1.0, float(w_ref.abs().max()))
+    log(f"    against single process: |dPE| {de:.3e} eV (limit "
+        f"{1e-4 + 1e-5 * abs(e_ref):.3e}), max|dF| {df:.3e} eV/A (limit "
+        f"{f_tol:.3e}), virial rel {dw:.3e} (limit 2e-3)")
+    if not (de < 1e-4 + 1e-5 * abs(e_ref) and df < f_tol and dw < 2e-3):
+        raise AssertionError(f"({case}) distributed step disagrees with the "
+                             f"single-process port")
+    if sorted(rec.args) != list(range(lc.n_model)):
+        raise AssertionError(f"({case}) brick 0's model shards did not all "
+                             f"reach the forward kernel: {sorted(rec.args)}")
+    return rec.args, launches
+
+
+def sweep_share(step, params, st, boxt):
+    """Device time under the halo/reverse/migration ranges over all device
+    time of two steps, from torch.profiler (all threads)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        log("    sweep share: this torch cannot profile worker threads; "
+            "not measured")
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=cfg) as prof:
+        t0 = time.perf_counter()
+        step.run(params, st, 2, (), boxt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    # the kernels' device rows, without the ranges' device-side rows (those
+    # are spans, waits on other ranks included); a range's own device time
+    # is that of the kernels its host ops launched
+    rows = prof.key_averages()
+    on_card = [str(getattr(e, "device_type", "")).endswith("CUDA")
+               for e in rows]
+    total = sum(dev_us(e) for e, c in zip(rows, on_card)
+                if c and not e.key.startswith("domain.")) / 2e3
+    ranges = {e.key: (getattr(e, "device_time_total", 0)
+                      or getattr(e, "cuda_time_total", 0)) / 2e3
+              for e, c in zip(rows, on_card)
+              if not c and e.key.startswith("domain.")}
+    if not total or not ranges:
+        log("    sweep share: the profiler recorded no device time under the "
+            "ranges; not measured")
+        return None
+    share = sum(ranges.values()) / total
+    log(f"    profile of 2 steps: {wall:.3f} ms wall a step, {total:.3f} ms "
+        f"of kernel time a step over all ranks ({total / wall:.1%} of the "
+        f"wall); under ranges: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(ranges.items()))
+        + f"; sweep share of the kernel time {share:.2%}")
+    log_kernels(prof, 2, "two distributed steps", top=8)
+    return share
+
+
+def dist_kernel_case(label, args, dev):
+    s, env, c, lo, hi = args
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return kernel_case(label, s, env, c, lo, hi, dev, gen, sample=True,
+                       chunked_lib=False)
+
+
+def phase_distributed(cfg, params, dev, scan):
+    """Copper at full COPPER_DP width in bricks on the one card (LocalComm:
+    one thread and stream per rank), cheb_pallas, NVE. (a) 2x2x2 bricks:
+    one step against the single-process port, then the 99-step protocol
+    from phase 3's velocities, held against phase 3's thermo rows at rtol
+    1e-5 (atoms constant, drift <= 1e-4 eV/atom); (b) 4 slabs x 2 model
+    shards, the fused kernels on neighbor-slot slices: the same one-step
+    parity, a few timed steps. Each kernel is held against ref.py at each
+    path's shape."""
+    from repro_torch.core import dp_model
+    from repro_torch.md import domain, integrator, lattice, neighbors, stepper
+
+    pos, typ, box = lattice.fcc_copper(*[MAIN_NX] * 3)
+    rng = np.random.default_rng(SEED)
+    pos_j = np.mod(pos + rng.normal(0.0, 0.05, pos.shape), box).astype(
+        np.float32)
+    pos_t = torch.as_tensor(pos_j, device=dev)
+    typ_t = torch.as_tensor(typ, dtype=torch.int64, device=dev)
+    box_t = stepper.pack_box(box, dev)
+    bld = stepper.build_neighbors_escalating(
+        cfg, neighbors.NeighborSpec(rcut_nbr=cfg.rcut + 2.0, sel=cfg.sel),
+        box, pos_t, typ_t)
+    e_ref, f_ref, w_ref = dp_model.dp_energy_forces(
+        params, bld.cfg_run, pos_t, bld.nlist, typ_t, box_t,
+        impl="cheb_pallas", nsel_norm=cfg.nsel)
+    ref = (float(e_ref), f_ref, w_ref)
+    del bld
+    torch.cuda.empty_cache()
+    kernels, launches = {}, {}
+
+    # -- (a) 2x2x2 bricks: one step, then the 99-step protocol -------------
+    args_a, _ = dist_one_step(cfg, params, dev, "a", pos_j, typ, box, ref)
+    kernels["a"] = dist_kernel_case(
+        f"distributed (a), brick 0: A = {DIST_CASES['a']['cap']}",
+        args_a[0], dev)
+    del args_a
+    torch.cuda.empty_cache()
+    spec, lc, pot = dist_setup(cfg, "a", box, dev)
+    masses = torch.as_tensor(lattice.masses_for(pot.type_map, typ),
+                             dtype=torch.float32, device=dev)
+    vel = integrator.init_velocities(torch.Generator().manual_seed(SEED),
+                                     masses, 330.0)
+    state, _ = domain.partition_atoms(pos.astype(np.float32),
+                                      vel.cpu().numpy(), typ, spec)
+    prog = domain.make_outer_md_program(
+        cfg, spec, lc, (lattice.MASS["Cu"],), 1.0, decomp="slots",
+        neighbor="cells", potential=pot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = prog.prime(params, domain.shard_state(state, lc, dev), box_t)
+    torch.cuda.synchronize()
+    t_prime = time.perf_counter() - t0
+    pe, ke, nat = [], [], []
+    t0 = time.perf_counter()
+    for n_segs, seg_len in stepper.chunk_schedule(99, 50, 8):
+        st, _, _, _, th = prog.run(st, params, n_segs, seg_len, (), box_t)
+        thermo = stepper.fetch_thermo(th)
+        domain.check_segment_thermo(thermo)
+        pe.append(thermo["pe"].reshape(-1))
+        ke.append(thermo["ke"].reshape(-1))
+        nat.append(thermo["n_atoms"].reshape(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["distributed_a"] = read_launches()
+    pe, ke, nat = (np.concatenate(x).astype(np.float64) for x in (pe, ke, nat))
+    n = len(pos)
+    etot = pe + ke
+    drift = float(etot.max() - etot.min()) / n
+    log(f"[10a] 99 steps (2 segments, migration at each start): "
+        f"{wall * 1e6 / (99 * n):.6f} us/step/atom (loop {wall:.3f} s; "
+        f"initial force evaluation {t_prime:.3f} s); launches "
+        f"{launches['distributed_a']}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"    atoms per step {int(nat.min())}..{int(nat.max())}; |d etot| "
+        f"per atom {drift:.3e} eV (limit 1e-4)")
+    worst = 0.0
+    for row in scan.thermo:
+        i = row["step"] - 1
+        got = {"pe": pe[i], "ke": ke[i], "etot": etot[i]}
+        log(f"    step {row['step']}: pe {pe[i]:.6f} ke {ke[i]:.6f} etot "
+            f"{etot[i]:.6f} (scan: {row['pe']:.6f} {row['ke']:.6f} "
+            f"{row['etot']:.6f})")
+        for k, v in got.items():
+            worst = max(worst, abs(v - row[k]) / max(abs(row[k]), 1e-30))
+    log(f"    against phase 3's scan run: thermo max rel diff {worst:.3e} "
+        f"(rtol 1e-5)")
+    if not (np.all(nat == n) and drift <= 1e-4 and worst <= 1e-5):
+        raise AssertionError("distributed (a) protocol failed")
+    for name, count in launches["distributed_a"].items():
+        if count != 8 * 100:
+            raise AssertionError(f"(a) {name} launched {count} times, not "
+                                 f"8 ranks x 100 force evaluations")
+    sweep_share(prog.step, params, st, box_t)
+    del st, prog
+    torch.cuda.empty_cache()
+
+    # -- (b) 4 slabs x 2 model shards: the kernels on slot slices ----------
+    args_b, launches["distributed_b"] = dist_one_step(
+        cfg, params, dev, "b", pos_j, typ, box, ref)
+    for m in sorted(args_b):
+        kernels[f"b{m}"] = dist_kernel_case(
+            f"distributed (b), brick 0, model shard {m}'s slot slice: A = "
+            f"{DIST_CASES['b']['cap']}", args_b[m], dev)
+    del args_b
+    torch.cuda.empty_cache()
+    spec, lc, pot = dist_setup(cfg, "b", box, dev)
+    state, _ = domain.partition_atoms(pos.astype(np.float32),
+                                      vel.cpu().numpy(), typ, spec)
+    step = domain.make_distributed_md_step(
+        cfg, spec, lc, (lattice.MASS["Cu"],), 1.0, decomp="slots",
+        neighbor="cells", potential=pot)
+    st = step.prime(params, domain.shard_state(state, lc, dev), box_t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (st, _, _, _), th = step.run(params, st, 10, (), box_t)
+    thermo = stepper.fetch_thermo(th)
+    domain.check_segment_thermo(thermo)
+    wall = time.perf_counter() - t0
+    log(f"[10b] 10 steps: {wall * 1e6 / (10 * n):.6f} us/step/atom; pe "
+        f"{thermo['pe'][-1]:.6f} (10a at step 10: {pe[9]:.6f}); "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if abs(thermo["pe"][-1] - pe[9]) > 1e-5 * abs(pe[9]):
+        raise AssertionError("(b) trajectory disagrees with (a)")
+    sweep_share(step, params, st, box_t)
+    return kernels, launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -820,15 +1143,21 @@ def main() -> int:
                        device=dev), COPPER_DP, "cheb")
     kernels = phase_kernels(COPPER_DP, WATER_DP, params, dev)
     launches, scan = phase_main_path(COPPER_DP, params, dev)
+    by_path = {"scan": launches}
     phase_rungs(COPPER_DP, params, dev)
-    phase_outer(COPPER_DP, params, dev, scan)
-    phase_water(WATER_DP, dev)
+    by_path["outer"] = phase_outer(COPPER_DP, params, dev, scan)
+    by_path["water"] = phase_water(WATER_DP, dev)
     phase_quintic(COPPER_DP, params, dev)
     phase_npt(COPPER_DP, params, dev)
     phase_lj(dev)
+    _, dist_launches = phase_distributed(COPPER_DP, params, dev, scan)
+    by_path.update(dist_launches)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [dict(kernels[name], launches=launches[name])
-                                  for name in REPLACES]}))
+    # launches: the main path's (phase 3); each path's run beside it
+    print(json.dumps({"kernels": [
+        dict(kernels[name], launches=launches[name],
+             launches_by_path={p: c[name] for p, c in by_path.items()})
+        for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -105,7 +105,8 @@ def _t_matrix_onetype(params, cfg: DPConfig, impl: str, center_type: int,
 def dp_atomic_energy(params: Dict[str, Any], cfg: DPConfig, rij: torch.Tensor,
                      nmask: torch.Tensor, atype: torch.Tensor,
                      impl: Optional[str] = None,
-                     nsel_norm: Optional[int] = None) -> torch.Tensor:
+                     nsel_norm: Optional[int] = None,
+                     comm: Optional[Any] = None) -> torch.Tensor:
     """Per-atom potential energies E_i.
 
     Args:
@@ -113,7 +114,14 @@ def dp_atomic_energy(params: Dict[str, Any], cfg: DPConfig, rij: torch.Tensor,
       nmask: (..., Na, Nm) neighbor validity.
       atype: (..., Na) center atom types.
       nsel_norm: the model's native neighbor capacity, which pins the
-        descriptor normalization when ``cfg.sel`` has been escalated.
+        descriptor normalization when ``cfg.sel`` has been escalated (or is
+        one model shard's slice of it).
+      comm: a rank of ``md.comm`` whose model-axis shards each hold a slice
+        of every atom's neighbor slots (``cfg.sel`` describes the slice): the
+        partial T matrices are summed over the model axis before the
+        descriptor, with an identity backward, so each shard's autograd
+        gives its own slice's part of the forces (the distributed step sums
+        the forces over the model axis after the backward pass).
     """
     impl = impl or cfg.impl
     env, s = descriptor.env_matrix(rij, nmask, cfg.rcut_smth, cfg.rcut)
@@ -128,6 +136,8 @@ def dp_atomic_energy(params: Dict[str, Any], cfg: DPConfig, rij: torch.Tensor,
             sel = (atype == ct)[..., None, None]
             t_mat = torch.where(sel, t_ct, 0.0 if t_mat is None else t_mat)
 
+    if comm is not None:
+        t_mat = comm.psum_same_grad(t_mat, comm.MODEL)
     d = descriptor.descriptor_from_t(t_mat, cfg.axis_neuron,
                                      nsel_norm or cfg.nsel)
     e_i = fitting.fitting_energy(params["fit"], cfg, d, atype)

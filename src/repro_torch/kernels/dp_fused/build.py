@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -64,9 +65,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dp_fused_error_string.restype = ctypes.c_char_p
 
 
-@functools.lru_cache(maxsize=None)
+_load_lock = threading.Lock()
+
+
 def load() -> KernelLibrary:
-    """Compile (once per source and flag set) and load the kernel library."""
+    """Compile (once per source and flag set) and load the kernel library.
+
+    Threads that launch at once (the ranks of ``md/comm.LocalComm``) wait
+    for one build: the temporary file is named by process, not thread.
+    """
+    with _load_lock:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> KernelLibrary:
     digest = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -19,6 +19,7 @@ time it replays the graph (``md/stepper.py``).
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -29,13 +30,32 @@ fwd_launches = 0
 bwd_launches = 0
 fwd_captured = 0
 bwd_captured = 0
+# the distributed step launches from one thread per rank (md/comm.LocalComm)
+# and autograd's device thread: a count is a read-modify-write
+_count_lock = threading.Lock()
 
 
 def count_replay(fwd: int, bwd: int) -> None:
     """A replay of a graph that recorded ``fwd``/``bwd`` launches ran them."""
     global fwd_launches, bwd_launches
-    fwd_launches += fwd
-    bwd_launches += bwd
+    with _count_lock:
+        fwd_launches += fwd
+        bwd_launches += bwd
+
+
+def _count(kind: str) -> None:
+    """One launch (or one captured call) of the ``kind`` kernel."""
+    global fwd_launches, bwd_launches, fwd_captured, bwd_captured
+    captured = torch.cuda.is_current_stream_capturing()
+    with _count_lock:
+        if kind == "fwd" and captured:
+            fwd_captured += 1
+        elif kind == "fwd":
+            fwd_launches += 1
+        elif captured:
+            bwd_captured += 1
+        else:
+            bwd_launches += 1
 
 
 def live_counts(s: torch.Tensor) -> torch.Tensor:
@@ -82,7 +102,6 @@ def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
               counts: torch.Tensor, lower: float, upper: float
               ) -> torch.Tensor:
     """T (A, 4, M) from s (A, N), env (A, N, 4), C (K, M), counts (A,)."""
-    global fwd_launches, fwd_captured
     a, n, k, m = _check_inputs(s, env, coeffs, counts)
     if s.device.type == "cpu":
         return ref.fused_fwd_ref(s, env, coeffs, counts, lower, upper)
@@ -97,10 +116,7 @@ def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
             counts.data_ptr(), out.data_ptr(), a, n, k, m, float(lower),
             float(upper), stream)
     kl.check(code, "dp_fused_fwd launch")
-    if torch.cuda.is_current_stream_capturing():
-        fwd_captured += 1
-    else:
-        fwd_launches += 1
+    _count("fwd")
     return out
 
 
@@ -108,7 +124,6 @@ def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
               counts: torch.Tensor, dt: torch.Tensor, lower: float,
               upper: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """ds (A, N) and denv (A, N, 4) from dT (A, 4, M); zero past counts."""
-    global bwd_launches, bwd_captured
     a, n, k, m = _check_inputs(s, env, coeffs, counts)
     _require(dt, "dt", (a, 4, m), torch.float32, s.device)
     if s.device.type == "cpu":
@@ -125,10 +140,7 @@ def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
             counts.data_ptr(), dt.data_ptr(), ds.data_ptr(), denv.data_ptr(),
             a, n, k, m, float(lower), float(upper), stream)
     kl.check(code, "dp_fused_bwd launch")
-    if torch.cuda.is_current_stream_capturing():
-        bwd_captured += 1
-    else:
-        bwd_launches += 1
+    _count("bwd")
     return ds, denv
 
 

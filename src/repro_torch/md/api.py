@@ -74,6 +74,10 @@ class Potential(Protocol):
                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Dict[str, torch.Tensor]]: ...
 
+    def atomic_energy(self, params: Any, rij: torch.Tensor,
+                      nmask: torch.Tensor, typ: torch.Tensor,
+                      comm: Optional[Any] = None) -> torch.Tensor: ...
+
 
 @dataclasses.dataclass(frozen=True)
 class DPPotential:
@@ -121,6 +125,14 @@ class DPPotential:
             params, self.cfg, pos, nlist, typ, box, impl=self.impl,
             nsel_norm=self.nsel_norm)
         return e, f, {"virial": virial}
+
+    def atomic_energy(self, params, rij, nmask, typ, comm=None):
+        """Per-atom energies of pair vectors ``rij``; with ``comm`` the
+        slots are this model shard's slice and T is summed over the model
+        axis (``dp_model.dp_atomic_energy``)."""
+        return dp_model.dp_atomic_energy(
+            params, self.cfg, rij, nmask, typ, impl=self.impl,
+            nsel_norm=self.nsel_norm, comm=comm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,11 +214,17 @@ class LJPotential:
         e_shift = 4.0 * self.epsilon * (src6 * src6 - src6)
         return torch.where(gate, e - e_shift, 0.0)
 
-    def atomic_energy(self, params, rij, nmask, typ):
-        """Half-pair atomic energies: i gets half of every i-j bond."""
+    def atomic_energy(self, params, rij, nmask, typ, comm=None):
+        """Half-pair atomic energies: i gets half of every i-j bond, so the
+        brick-distributed sum over owners is exact. With ``comm`` the slots
+        are this model shard's slice: the partial sums complete over the
+        model axis (identity backward, as for DP's T)."""
         del params, typ
         r2 = torch.sum(rij * rij, dim=-1)
-        return 0.5 * torch.sum(self._pair_energy(r2, nmask), dim=-1)
+        e_i = 0.5 * torch.sum(self._pair_energy(r2, nmask), dim=-1)
+        if comm is not None:
+            e_i = comm.psum_same_grad(e_i, comm.MODEL)
+        return e_i
 
     def energy_forces(self, params, pos, typ, nlist, nmask=None, box=None):
         def energy(rij, nmask_g):

@@ -82,15 +82,22 @@ def _pack_sections(cand, dist2, cand_type, spec: NeighborSpec, rc2: float):
 
 def brute_force_neighbors(
     pos: torch.Tensor, atype: torch.Tensor, spec: NeighborSpec,
-    box: Optional[torch.Tensor] = None,
+    box: Optional[torch.Tensor] = None, amask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O(N^2) reference / small-box fallback (cells would alias under PBC)."""
+    """O(N^2) reference / small-box fallback (cells would alias under PBC).
+
+    ``amask`` (N,) marks the real atoms of a padded array: a padded atom is
+    neither a center with neighbors nor anyone's neighbor.
+    """
     n = pos.shape[0]
     rij = _min_image(pos[None, :, :] - pos[:, None, :], box)
     d2 = torch.sum(rij * rij, dim=-1)
     idx = torch.arange(n, device=pos.device)
     cand = idx[None, :].expand(n, n)
     valid = ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    if amask is not None:
+        live = amask > 0
+        valid = valid & live[None, :] & live[:, None]
     cand = torch.where(valid, cand, -1)
     d2 = torch.where(valid, d2, torch.inf)
     ctype = atype[cand.clamp(min=0)]

@@ -323,3 +323,59 @@ def test_a_failed_capture_raises(dev):
     with pytest.raises(RuntimeError):
         eng.run(carry, 1, 1, 2.0)
     assert eng.replays == 0
+
+
+@pytest.mark.cuda
+def test_local_comm_bricks_on_the_card_match_single_process(dev):
+    """Eight ranks on the card (2x2 bricks x 2 model shards, neighbor-slot
+    split, brick cell list, one thread and stream per rank) against the
+    single-process force evaluation of the same atoms, both through the
+    fused kernels: PE 1e-4 + 1e-5 |E|, forces 1e-5 max(1, max|F|), virial
+    2e-3 relative. Every rank launches both kernels once."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import DPConfig
+    from repro_torch.md import comm, domain, lattice, neighbors
+
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(64,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(32, 32, 32))
+    params = dp_model.tabulate_model(dp_model.init_dp_params(
+        torch.Generator().manual_seed(0), cfg, device=dev), cfg, "cheb")
+    pos, typ, box = lattice.fcc_copper(4, 4, 3)
+    rng = np.random.default_rng(0)
+    pos = np.mod(pos + rng.normal(0, 0.05, pos.shape), box).astype(np.float32)
+    boxt = torch.tensor(np.asarray(box, np.float32), device=dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    typ_t = torch.from_numpy(typ).long().to(dev)
+    nl, _ = neighbors.brute_force_neighbors(
+        pos_t, typ_t, neighbors.NeighborSpec(rcut_nbr=4.5, sel=(64,)), boxt)
+    e_ref, f_ref, w_ref = dp_model.dp_energy_forces(
+        params, cfg, pos_t, nl, typ_t, boxt, impl="cheb_pallas")
+
+    spec = domain.DomainSpec.for_topology(tuple(box), (2, 2), 96, 96, 4.5)
+    state, _ = domain.partition_atoms(pos, np.zeros_like(pos), typ, spec)
+    lc = comm.LocalComm(4, 2, device=dev)
+    step = domain.make_distributed_md_step(
+        cfg, spec, lc, (63.546,), 1e-3, impl="cheb_pallas", decomp="slots",
+        neighbor="cells")
+    fw0, bw0 = ops.fwd_launches, ops.bwd_launches
+    (new, _, _, _), th = step(params, domain.shard_state(state, lc, dev), (),
+                              boxt, ())
+    torch.cuda.synchronize()
+    assert (ops.fwd_launches - fw0, ops.bwd_launches - bw0) == (8, 8)
+    assert int(th["n_atoms"]) == len(pos)
+    assert max(int(th[k]) for k in ("halo_overflow", "nbr_overflow",
+                                    "geom_overflow")) <= 0
+    e_ref = float(e_ref)
+    assert abs(float(th["pe"]) - e_ref) < 1e-4 + 1e-5 * abs(e_ref)
+    w = th["stress"].cpu().numpy() * float(np.prod(box))
+    w_ref = w_ref.cpu().numpy()
+    assert np.abs(w - w_ref).max() / max(1.0, np.abs(w_ref).max()) < 2e-3
+    f_ref = f_ref.cpu().numpy()
+    mask, p0 = state.mask.numpy(), state.pos.numpy()
+    force = new.force.cpu().numpy()
+    tol = 1e-5 * max(1.0, float(np.abs(f_ref).max()))
+    for s in range(4):
+        for i in np.nonzero(mask[s])[0]:
+            j = int(np.argmin(np.sum((pos - p0[s, i]) ** 2, 1)))
+            assert np.abs(force[s, i] - f_ref[j]).max() < tol
