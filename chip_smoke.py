@@ -61,6 +61,21 @@ Phases; any failure exits non-zero before the result line:
      steps against (a). Each kernel held against ref.py at the shape each
      path gives it; launch counts per path, us/step/atom, peak memory and
      the sweeps' share of the device time (torch.profiler).
+ 11. DP training at full COPPER_DP width (``repro_torch.train``, the
+     ``mlp`` rung, which launches no kernel): teacher data on 16 jittered
+     fcc_copper(5,5,5) = 500-atom configurations, the student (seed 0)
+     after fit_env_stats, 100 AdamW steps of minibatch 4 through the loss's
+     double backward: loss and grad_norm finite every step, rmse_f at the
+     last log below the first; ms/step (median after the first 5),
+     configurations/s, peak memory. One step at minibatch 1 on the card
+     against the CPU (every leaf's gradient rtol 1e-4, atol 1e-5 max|g|;
+     loss and grad_norm rtol 1e-5). save_async + restore onto the card:
+     leaves bit for bit, 5 more steps from both at loss rtol 1e-6. The
+     trained student tabulated: quintic dE/dF printed; cheb_pallas through
+     the kernels against mlp on 2 held-out configurations (energy rtol
+     1e-5, forces atol 5e-5 max(1, max|F|)), each kernel held against
+     ref.py at that shape (path "train_check"); a profile of two steps by
+     kind of kernel and the device's busy share.
 
 Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
 ``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
@@ -73,6 +88,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1121,6 +1137,273 @@ def phase_distributed(cfg, params, dev, scan):
     return kernels, launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+TRAIN_NX = 5         # fcc_copper(5,5,5) = 500 atoms, edge 18.17 A >= 2 rcut
+TRAIN_CONFIGS = 16
+TRAIN_BATCH = 4
+TRAIN_STEPS = 100
+TRAIN_LOG_EVERY = 10
+# kernel-name fragments of a training step's device time, first match wins
+TRAIN_KINDS = (("GEMM", ("gemm", "cutlass", "xmma", "cublas")),
+               ("index_add_ / scatter / gather", ("index", "scatter",
+                                                  "gather")),
+               ("optimizer (foreach)", ("foreach", "multi_tensor")),
+               ("tanh and its derivatives", ("tanh",)),
+               ("reductions", ("reduce",)))
+
+
+def train_kind(key):
+    low = key.lower()
+    for kind, frags in TRAIN_KINDS:
+        if any(f in low for f in frags):
+            return kind
+    return "other elementwise"
+
+
+def on_device(x, dev):
+    from repro_torch.train import tree
+    return tree.tree_map(lambda t: t.to(dev), x)
+
+
+def profile_train_steps(step, state, mb, step_ms):
+    """Device time of two training steps by kind of kernel, and the
+    device's busy share (kernel time over wall: one stream), of the
+    profiled wall and of ``step_ms``, the median step without the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = step(state, mb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and dev_us(e) > 0]
+    if not rows:
+        log("    profile of a training step: the profiler recorded no "
+            "device time")
+        return
+    kinds = {}
+    for e in rows:
+        k = train_kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + dev_us(e) / 2 / 1e3
+    total = sum(kinds.values())
+    log(f"    profile of a training step: {total:.3f} ms of kernels; "
+        f"device busy {total / wall:.1%} of the profiled wall ({wall:.3f} "
+        f"ms), {total / step_ms:.1%} of the median step without the "
+        f"profiler ({step_ms:.3f} ms)")
+    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"      {v:8.3f} ms  {v / total:6.1%}  {k}")
+    log_kernels(prof, 2, "a training step")
+
+
+def phase_train(cfg, dev):
+    """DP training at full COPPER_DP width: teacher data, 100 AdamW steps
+    through the loss's double backward, the card against the CPU, a
+    checkpoint round trip, the trained student tabulated and run through
+    the kernels, and a profile of a step."""
+    from repro_torch.core import descriptor, dp_model
+    from repro_torch.train import checkpoint, dp_trainer, tree
+    from repro_torch.train.steps import TrainState
+
+    # -- data and student ------------------------------------------------
+    gen = torch.Generator().manual_seed(SEED)
+    teacher = dp_model.init_dp_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = dp_trainer.teacher_data(cfg, teacher, n_configs=TRAIN_CONFIGS,
+                                   supercell=(TRAIN_NX,) * 3, jitter=0.12,
+                                   seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    na = data.rij.shape[1]
+    live = float(data.nmask.float().mean())
+    log(f"[11] teacher data: {TRAIN_CONFIGS} configurations of {na} atoms, "
+        f"sel {cfg.sel}, {live:.1%} of the slots live; labelled in "
+        f"{time.perf_counter() - t0:.3f} s; E_ref "
+        f"{float(data.e_ref.min()):.4f}..{float(data.e_ref.max()):.4f} eV, "
+        f"max|F_ref| {float(data.f_ref.abs().max()):.4e} eV/A")
+    loss_cfg = dp_trainer.DPLossConfig()
+    opt = dp_trainer.make_optimizer(loss_cfg)
+    student = dp_trainer.fit_env_stats(
+        dp_model.init_dp_params(gen, cfg, device=dev), cfg, data)
+    state = TrainState(student, opt.init(student),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    step = dp_trainer.make_dp_train_step(cfg, loss_cfg, opt)
+    n_weights = sum(t.numel() for t in tree.leaves(student))
+    log(f"    student: {n_weights} weights in {len(tree.leaves(student))} "
+        f"leaves (dstd and ebias trained); dstd "
+        f"{student['dstd'].cpu().numpy().round(5).tolist()}")
+
+    # -- 100 steps -------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, rows = [], []
+    for it in range(TRAIN_STEPS):
+        mb = dp_trainer.minibatch(data, rng.integers(0, TRAIN_CONFIGS,
+                                                     TRAIN_BATCH))
+        t0 = time.perf_counter()
+        state, m = step(state, mb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        # a NaN in any gradient makes the global norm NaN
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"step {it + 1}: loss {loss}, grad_norm "
+                                 f"{gnorm}")
+        if (it + 1) % TRAIN_LOG_EVERY == 0 or it == 0:
+            row = {k: float(v) for k, v in m.items()}
+            rows.append(row)
+            log(f"    step {it + 1:4d}: loss {row['loss']:.6e} rmse_E/atom "
+                f"{row['rmse_e_atom']:.6e} rmse_F {row['rmse_f']:.6e} "
+                f"grad_norm {row['grad_norm']:.6e}")
+    ms = float(np.median(times[5:]))
+    log(f"    {TRAIN_STEPS} steps of {TRAIN_BATCH} configurations: "
+        f"{ms:.3f} ms/step (median of steps 6-{TRAIN_STEPS}; first step "
+        f"{times[0]:.3f} ms), {TRAIN_BATCH / ms * 1e3:.2f} configurations/s;"
+        f" max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+        f"above what was allocated before the first step")
+    if not rows[-1]["rmse_f"] < rows[0]["rmse_f"]:
+        raise AssertionError("rmse_f did not fall over training")
+
+    # -- the card against the CPU, batch 1 -------------------------------
+    mb = dp_trainer.minibatch(data, np.array([0]))
+    state_c, mb_c = on_device(state, "cpu"), on_device(mb, "cpu")
+    loss_g, _, g_g = step.loss_and_grads(state.params, mb, state.step)
+    t0 = time.perf_counter()
+    loss_c, _, g_c = step.loss_and_grads(state_c.params, mb_c, state_c.step)
+    t_cpu = time.perf_counter() - t0
+    _, m_g = step(state, mb)
+    _, m_c = step(state_c, mb_c)
+    worst = 0.0
+    for path, g, c in zip(tree.flatten_with_paths(g_g)[1],
+                          tree.leaves(g_g), tree.leaves(g_c)):
+        g = g.cpu()
+        atol = 1e-5 * float(c.abs().max())
+        err = float((g - c).abs().max())
+        worst = max(worst, err / max(float(c.abs().max()), 1e-30))
+        if not (torch.isfinite(g).all()
+                and torch.allclose(g, c, rtol=1e-4, atol=atol)):
+            raise AssertionError(f"gradient {path}: card and CPU disagree "
+                                 f"(max abs err {err:.3e}, atol {atol:.3e})")
+    rel = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
+           for k in ("loss", "grad_norm")}
+    rel["loss_and_grads loss"] = abs(float(loss_g) - float(loss_c)) / abs(
+        float(loss_c))
+    log(f"    card vs CPU, one step at batch 1 ({na} atoms; CPU "
+        f"differentiation {t_cpu:.2f} s): gradients of all "
+        f"{len(tree.leaves(g_c))} leaves within rtol 1e-4, atol 1e-5 "
+        f"max|g| (largest |dg| / max|g| {worst:.3e}); rel. diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (1e-5)")
+    if max(rel.values()) > 1e-5:
+        raise AssertionError("loss or grad_norm: card and CPU disagree")
+    del state_c, mb_c, g_c, g_g
+
+    # -- checkpoint: save_async from the card, restore onto it -----------
+    ckpt_root = ROOT / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckpt_root) as ckpt_dir:
+        t0 = time.perf_counter()
+        handle = checkpoint.save_async(ckpt_dir, TRAIN_STEPS, state)
+        t_snap = time.perf_counter() - t0
+        path = handle.wait()
+        t_save = time.perf_counter() - t0
+        restored, at = checkpoint.restore(ckpt_dir, state)
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+    saved, paths = tree.flatten_with_paths(state)
+    for path_, a, b in zip(paths, saved, tree.leaves(restored)):
+        if not (b.device == a.device and b.dtype == a.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"restored leaf {path_} differs")
+    losses = {"live": [], "restored": []}
+    rng_b = np.random.default_rng(SEED + 1)
+    mbs = [dp_trainer.minibatch(data, rng_b.integers(0, TRAIN_CONFIGS,
+                                                     TRAIN_BATCH))
+           for _ in range(5)]
+    # index_add_ sums with atomics, in an order that changes between runs:
+    # at step 100 the loss (~1e-7) is a near-cancelling sum of squared force
+    # residuals, and on an H100 that order alone moved it by 8.2e-7
+    # relative. The continuation runs index_add_'s deterministic version,
+    # so what the comparison sees is the checkpoint.
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, st in (("live", state), ("restored", restored)):
+            for b in mbs:
+                st, m = step(st, b)
+                losses[name].append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    worst = max(abs(a - b) / abs(a) for a, b in zip(losses["live"],
+                                                     losses["restored"]))
+    same = losses["live"] == losses["restored"]
+    log(f"    checkpoint at step {at}: {len(tree.leaves(state))} leaves, "
+        f"{size / 2**20:.2f} MiB; snapshot {t_snap * 1e3:.1f} ms, written "
+        f"after {t_save * 1e3:.1f} ms; restored leaves equal bit for bit; 5 "
+        f"more steps (deterministic index_add_): losses live "
+        f"{losses['live']}, restored {losses['restored']} (max rel diff "
+        f"{worst:.3e}, rtol 1e-6; equal bit for bit: {same})")
+    if worst > 1e-6:
+        raise AssertionError("training from the restored checkpoint diverges")
+    del restored
+
+    # -- the trained model compressed, through the kernels ---------------
+    params = state.params
+    held = dp_trainer.teacher_data(cfg, params, n_configs=2,
+                                   supercell=(TRAIN_NX,) * 3, seed=99,
+                                   device=dev)
+    e0, f0 = held.e_ref, held.f_ref
+    p_q = dp_model.tabulate_model(params, cfg, "quintic")
+    e1, f1 = dp_trainer.batch_energy_forces(p_q, cfg, held, impl="quintic")
+    log(f"    tabulated-vs-trained (quintic): dE "
+        f"{float((e1 - e0).abs().max()):.2e} eV, dF "
+        f"{float((f1 - f0).abs().max()):.2e} eV/A")
+    p_c = dp_model.tabulate_model(params, cfg, "cheb")
+    reset_launches()
+    e2, f2 = dp_trainer.batch_energy_forces(p_c, cfg, held,
+                                            impl="cheb_pallas")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    de = float(((e2 - e0).abs() / e0.abs()).max())
+    df = float((f2 - f0).abs().max())
+    fmax = max(1.0, float(f0.abs().max()))
+    log(f"    cheb_pallas (trained student) vs mlp on 2 held-out "
+        f"configurations: |dE|/|E| {de:.3e} (1e-5), max|dF| {df:.3e} eV/A "
+        f"(5e-5 x {fmax:.2f}); launches {launches}")
+    if not (torch.isfinite(f2).all() and de <= 1e-5 and df <= 5e-5 * fmax):
+        raise AssertionError("the trained student's cheb_pallas disagrees "
+                             "with mlp")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the trained "
+                                 f"model")
+    # each kernel against its plain version at the shape this path gives it
+    with torch.no_grad():
+        env, s = descriptor.env_matrix(held.rij, held.nmask, cfg.rcut_smth,
+                                       cfg.rcut)
+        env, s = descriptor.normalize_env(env, s, held.atype, params["dstd"])
+    dist_kernel_case(f"trained student, {held.rij.shape[0]} held-out "
+                     f"configurations", (s.reshape(-1, s.shape[-1]),
+                                         env.reshape(-1, s.shape[-1], 4),
+                                         p_c["table"]["nets"]["0"]["coeffs"],
+                                         cfg.table_lower, cfg.table_upper),
+                     dev)
+    del env, s, held, p_q, p_c
+
+    profile_train_steps(step, state, dp_trainer.minibatch(
+        data, np.arange(TRAIN_BATCH)), ms)
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1152,6 +1435,7 @@ def main() -> int:
     phase_lj(dev)
     _, dist_launches = phase_distributed(COPPER_DP, params, dev, scan)
     by_path.update(dist_launches)
+    by_path["train_check"] = phase_train(COPPER_DP, dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches: the main path's (phase 3); each path's run beside it
     print(json.dumps({"kernels": [

@@ -379,3 +379,47 @@ def test_local_comm_bricks_on_the_card_match_single_process(dev):
         for i in np.nonzero(mask[s])[0]:
             j = int(np.argmin(np.sum((pos - p0[s, i]) ** 2, 1)))
             assert np.abs(force[s, i] - f_ref[j]).max() < tol
+
+
+# ------------------------------------------------------------- DP training
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One DP train step (the loss's double backward, AdamW) on the card
+    against the same step on the CPU from the same state and batch, at
+    chip_smoke.py phase 11's tolerances: every leaf's gradient rtol 1e-4,
+    atol 1e-5 x max|g| of the leaf; loss and grad_norm rtol 1e-5."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import DPConfig
+    from repro_torch.train import dp_trainer, tree
+    from repro_torch.train.steps import TrainState
+
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(32, 32, 32))
+    gen = torch.Generator().manual_seed(0)
+    teacher = dp_model.init_dp_params(gen, cfg, device="cpu")
+    data = dp_trainer.teacher_data(cfg, teacher, n_configs=2, device="cpu")
+    loss_cfg = dp_trainer.DPLossConfig()
+    opt = dp_trainer.make_optimizer(loss_cfg)
+    student = dp_trainer.fit_env_stats(
+        dp_model.init_dp_params(gen, cfg, device="cpu"), cfg, data)
+    state = TrainState(student, opt.init(student),
+                       torch.zeros((), dtype=torch.int32))
+    step = dp_trainer.make_dp_train_step(cfg, loss_cfg, opt)
+    on_card = (tree.tree_map(lambda t: t.to(dev), state),
+               dp_trainer.DPBatch(*(x.to(dev) for x in data)))
+
+    loss_c, _, g_c = step.loss_and_grads(state.params, data, state.step)
+    loss_g, _, g_g = step.loss_and_grads(on_card[0].params, on_card[1],
+                                         on_card[0].step)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for g, c in zip(tree.leaves(g_g), tree.leaves(g_c)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4,
+                                   atol=1e-5 * float(c.abs().max()))
+    _, m_c = step(state, data)
+    new_g, m_g = step(*on_card)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], rtol=1e-5, atol=0)
+    assert new_g.step.device.type == "cuda" and int(new_g.step) == 1

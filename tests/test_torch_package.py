@@ -17,6 +17,8 @@ from repro_torch import bridge
 from repro_torch.core import dp_model
 from repro_torch.core.types import DPConfig
 from repro_torch.md import api, cli, driver, lattice
+from repro_torch.train import cli as train_cli
+from repro_torch.train import dp_trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),
@@ -32,7 +34,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.") or m == "ml_dtypes")
 print(len(names), bad)
 """
 
@@ -43,7 +45,7 @@ def test_port_imports_neither_jax_nor_reference():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 17 and bad == "[]", out.stdout
+    assert int(n) >= 36 and bad == "[]", out.stdout
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -72,6 +74,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         driver.run_md(TINY, params, pos, typ, box)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--potential", "lj"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dp_trainer.train_dp(TINY, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dp_trainer.teacher_data(TINY, params, n_configs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--steps", "1"])
 
 
 def _run(spec, params=None, nx=2):
@@ -89,10 +97,10 @@ def _dp(impl=None):
 _LJ = api.LJPotential(sel=(48,), rcut_lj=4.0)
 _SHORT = dict(steps=4, rebuild_every=2, skin=0.5)
 
-# Every call that the port refused before its last slice (ROADMAP.md
-# §A.7-§A.10) now runs on the CPU: the quintic rung, the python and outer
-# engines, LJ, Langevin, Berendsen, the barostats and pressure_gpa, the
-# run_md shim and the CLI.
+# Every call that the port refused or lacked before its last slices
+# (ROADMAP.md §A.7-§A.10, §A.13) now runs on the CPU: the quintic rung, the
+# python and outer engines, LJ, Langevin, Berendsen, the barostats and
+# pressure_gpa, the run_md shim and the CLI; the DP trainer and its CLI.
 _FORMERLY_REFUSED = {
     "make_potential_quintic": lambda: _run(api.SimulationSpec(
         api.make_potential("quintic", TINY), **_SHORT),
@@ -126,12 +134,21 @@ _FORMERLY_REFUSED = {
     "cli": lambda: cli.main(["--device", "cpu", "--nx", "2", "--steps", "3",
                              "--engine", "outer", "--potential", "lj",
                              "--ensemble", "npt_scr"]),
+    "train_dp": lambda: dp_trainer.train_dp(TINY, steps=3, n_configs=4,
+                                            verbose=False, device="cpu"),
+    "train_cli_copper": lambda: train_cli.main(
+        ["--system", "copper", "--device", "cpu", "--steps", "3"]),
+    "train_cli_water": lambda: train_cli.main(
+        ["--system", "water", "--device", "cpu", "--steps", "3"]),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_FORMERLY_REFUSED))
 def test_formerly_refused_parts_run_on_the_cpu(name):
     out = _FORMERLY_REFUSED[name]()
+    if name == "train_dp":
+        state, log = out
+        assert int(state.step) == 3 and np.isfinite(log[-1]["loss"])
     if isinstance(out, driver.MDResult):
         assert out.steps == _SHORT["steps"]
         assert np.all(np.isfinite(out.final_pos))
