@@ -68,14 +68,28 @@ Phases; any failure exits non-zero before the result line:
      double backward: loss and grad_norm finite every step, rmse_f at the
      last log below the first; ms/step (median after the first 5),
      configurations/s, peak memory. One step at minibatch 1 on the card
-     against the CPU (every leaf's gradient rtol 1e-4, atol 1e-5 max|g|;
-     loss and grad_norm rtol 1e-5). save_async + restore onto the card:
+     (index_add_'s deterministic version) against the CPU (every leaf's
+     gradient rtol 1e-4, atol 1e-5 max|g|; loss and grad_norm rtol 1e-5). save_async + restore onto the card:
      leaves bit for bit, 5 more steps from both at loss rtol 1e-6. The
      trained student tabulated: quintic dE/dF printed; cheb_pallas through
      the kernels against mlp on 2 held-out configurations (energy rtol
      1e-5, forces atol 5e-5 max(1, max|F|)), each kernel held against
      ref.py at that shape (path "train_check"); a profile of two steps by
      kind of kernel and the device's busy share.
+
+ 12. the dry run (``repro_torch.launch.md_dryrun``) of the paper's cells
+     cu, cu_strong and h2o x all four rungs, rank (0, 0) of the 16 x 16
+     grid, 2-step segments: a fake CUDA trace per row (memory, the cell
+     list's share, FLOPs, bytes, collective bytes, the roofline terms
+     against the H100). Each row whose estimate fits under 70% of the
+     card's memory runs for real on the card (``run_rank``: the rank's
+     brick as a periodic lattice block whose halo is its own far faces):
+     its peak memory above the allocation before it must be 0.75-1.25x the
+     estimate, energies finite, atoms kept, no overflow flag (a neighbour
+     overflow escalates sel once, as the drivers do, and the estimate is
+     traced again at that sel); ms/step against the roofline's bound. The
+     kernels at the cheb_pallas runs' shapes against ref.py and timed
+     (path "dryrun").
 
 Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
 ``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
@@ -99,9 +113,6 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/dp_fused/csrc/dp_fused.cu"
 REPLACES = {"dp_fused_fwd": "src/repro/kernels/dp_fused/dp_fused.py:145",
             "dp_fused_bwd": "src/repro/kernels/dp_fused/dp_fused.py:182"}
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 SEED = 0
 SAMPLE_ATOMS = 4096
 MAIN_NX = 20         # fcc_copper(20,20,20) = 32,000 atoms: the main path
@@ -203,21 +214,18 @@ def library_bwd(s, env, c, dt, lo, hi):
 
 
 def bounds(live: int, a: int, n: int, k: int, m: int):
-    """Least time (ms) for each kernel's work on these inputs: each input
-    byte read once (live slots only), each output byte written once, and
-    the FP32 operations of the factored algorithm against the H100's
-    peaks. Forward: 8K (env^T B) + 3K (recurrence) per live slot, 8KM
-    (S C) per atom. Backward: ~24K per live slot (both recurrences, B D,
-    B' D, env . B'D), 8KM (C dT^T) per atom."""
-    read = live * 20 + k * m * 4 + a * 4
-    fwd_bytes = read + a * 4 * m * 4
-    fwd_ops = live * 11 * k + a * 8 * k * m
-    bwd_bytes = read + a * 4 * m * 4 + a * n * 20
-    bwd_ops = live * 24 * k + a * 8 * k * m
+    """Least time (ms) for each kernel's work on these inputs: the bytes
+    and FP32 operations of ``ops.kernel_cost`` (each input byte read once,
+    live slots only; each output byte written once; the factored
+    algorithm's operations, which the dry run's FLOP counter also uses)
+    against the H100's data-sheet peaks (``roofline.HW_H100``)."""
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.kernels.dp_fused import ops
+
     out = {}
-    for name, b, f in (("dp_fused_fwd", fwd_bytes, fwd_ops),
-                       ("dp_fused_bwd", bwd_bytes, bwd_ops)):
-        t_b, t_f = b / PEAK_BYTES * 1e3, f / PEAK_FP32 * 1e3
+    for name, (b, f) in ops.kernel_cost(live, a, n, k, m).items():
+        t_b = b / HW_H100.hbm_bw * 1e3
+        t_f = f / HW_H100.peak_flops * 1e3
         out[name] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
     return out
 
@@ -1275,14 +1283,26 @@ def phase_train(cfg, dev):
         raise AssertionError("rmse_f did not fall over training")
 
     # -- the card against the CPU, batch 1 -------------------------------
+    # The card's atomic index_add_ sums in an order that changes from run to
+    # run; two card evaluations of this near-cancelling loss (step 100) were
+    # seen 1.2e-5 apart on an H100. The comparison runs index_add_'s
+    # deterministic version on the card, as the continuation below does, so
+    # it sees the card's arithmetic against the CPU's, not that noise.
     mb = dp_trainer.minibatch(data, np.array([0]))
     state_c, mb_c = on_device(state, "cpu"), on_device(mb, "cpu")
-    loss_g, _, g_g = step.loss_and_grads(state.params, mb, state.step)
-    t0 = time.perf_counter()
-    loss_c, _, g_c = step.loss_and_grads(state_c.params, mb_c, state_c.step)
-    t_cpu = time.perf_counter() - t0
-    _, m_g = step(state, mb)
-    _, m_c = step(state_c, mb_c)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss_g, _, g_g = step.loss_and_grads(state.params, mb, state.step)
+        t0 = time.perf_counter()
+        loss_c, _, g_c = step.loss_and_grads(state_c.params, mb_c,
+                                             state_c.step)
+        t_cpu = time.perf_counter() - t0
+        _, m_g = step(state, mb)
+        _, m_c = step(state_c, mb_c)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
     worst = 0.0
     for path, g, c in zip(tree.flatten_with_paths(g_g)[1],
                           tree.leaves(g_g), tree.leaves(g_c)):
@@ -1405,6 +1425,162 @@ def phase_train(cfg, dev):
 
 
 
+# ----------------------------------------------------------------- phase 12
+
+DRYRUN_SEG = 2       # steps of a traced and of a real segment
+DRYRUN_FIT = 0.70    # real runs for estimates under this share of the card
+DRYRUN_BAND = (0.75, 1.25)   # real peak / estimated peak
+
+
+class RecordCalls:
+    """Wraps ``ops.fused_fwd`` while a run goes through it and keeps the
+    inputs of calls ``first .. first + count - 1`` (0-based; one per
+    neighbour section), cloned, so the kernels can be timed at the shapes
+    the run gave them. Calls before ``first`` (a measured run's) keep
+    nothing, so they allocate nothing extra."""
+
+    def __init__(self, first, count):
+        from repro_torch.kernels.dp_fused import ops
+        self.ops, self.orig = ops, ops.fused_fwd
+        self.first, self.count, self.calls, self.args = first, count, 0, []
+
+    def __enter__(self):
+        def wrapped(s, env, coeffs, counts, lower, upper):
+            if self.first <= self.calls < self.first + self.count:
+                self.args.append((s.clone(), env.clone(), coeffs, lower,
+                                  upper))
+            self.calls += 1
+            return self.orig(s, env, coeffs, counts, lower, upper)
+        self.ops.fused_fwd = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_fwd = self.orig
+
+
+def log_dryrun_row(row):
+    log(f"  {row['cell']}: atoms/chip {row['atoms_per_chip']}, centers "
+        f"{row['centers']} x sel {row['sel']}, mem {row['mem_GiB']:.3f} GiB "
+        f"(args {row['arg_bytes'] / 2**30:.3f}, cell list "
+        f"{row['cell_list_GiB']:.3f}), FLOPs {row['flops/chip']:.4e} (kernels "
+        f"{row['kernel_flops/chip']:.4e}), bytes {row['bytes/chip']:.4e}, "
+        f"collective {row['coll_bytes/chip']:.4e} B; t_compute "
+        f"{row['t_compute'] * 1e3:.3f} ms, t_memory {row['t_memory'] * 1e3:.3f}"
+        f" ms, t_collective {(row['t_ici'] + row['t_dcn']) * 1e3:.4f} ms -> "
+        f"{row['dominant']}; trace {row['t_compile_s']} s")
+
+
+def phase_dryrun(dev):
+    """``repro_torch.launch.md_dryrun`` on the card: every cell (cu,
+    cu_strong, h2o) x rung on the 16 x 16 grid as a fake CUDA trace of rank
+    (0, 0)'s segment of DRYRUN_SEG steps, each row printed. Every row whose
+    estimate fits under DRYRUN_FIT of the card runs for real
+    (``md_dryrun.run_rank``: the rank's brick as a periodic block of the
+    lattice whose halo is its own far faces), and its peak memory above
+    what was allocated before it must lie within DRYRUN_BAND of the
+    estimate; a neighbour overflow escalates sel as the drivers do, and the
+    estimate is traced again at the escalated sel. Step time against the
+    roofline's bound; the kernels held against ref.py and timed at the
+    cheb_pallas runs' shapes."""
+    from repro_torch.launch import md_dryrun, mesh
+    from repro_torch.md import stepper
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    # the real runs allocate tens of GiB in blocks of many sizes after the
+    # earlier phases' allocations: grow segments in place instead of
+    # splitting cached blocks, or the allocator fragments past the card
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    log(f"[12] dry run of rank (0, 0) on the 16 x 16 grid, {DRYRUN_SEG}-step "
+        f"segments; card total_memory {total} B ({total / 2**30:.3f} GiB); "
+        f"real runs below {DRYRUN_FIT:.0%} of it")
+    grid = mesh.make_production_mesh(multi_pod=False)
+    kernels, misses, launches = {}, [], {"dp_fused_fwd": 0,
+                                         "dp_fused_bwd": 0}
+    for name, cell in md_dryrun.CELLS.items():
+        sel = None                     # escalated once a real run needs it
+        for impl in md_dryrun.IMPLS:
+            def estimate(sel):
+                row = md_dryrun.lower_md_cell(
+                    cell, impl, grid, False, verbose=False,
+                    segment_len=DRYRUN_SEG, device="cuda", sel=sel)
+                if row["status"] != "ok":
+                    raise AssertionError(f"dry run of {name}/{impl} failed: "
+                                         f"{row['error']}")
+                log_dryrun_row(row)
+                fits = row["mem_GiB"] * 2**30 <= DRYRUN_FIT * total
+                if not fits:
+                    log(f"    not run: the estimate exceeds {DRYRUN_FIT:.0%}"
+                        f" of the card")
+                return row, fits
+
+            est, fits = estimate(None)
+            if sel is not None:
+                est, fits = estimate(sel)
+            if not fits:
+                continue
+            rank = md_dryrun.rank_config(cell, impl, grid, False, sel=sel)
+            n_sec = len(rank.cfg.sel)
+            reset_launches()
+            try:
+                with RecordCalls(DRYRUN_SEG * n_sec, n_sec) as rec:
+                    out = md_dryrun.run_rank(rank, DRYRUN_SEG, device=dev)
+            except RuntimeError as e:
+                if "nbr_overflow" not in str(e) or sel is not None:
+                    raise
+                sel = tuple(stepper.EscalationPolicy().grow(x)
+                            for x in rank.cfg.sel)
+                log(f"    real run: {e}; sel {tuple(rank.cfg.sel)} -> {sel}, "
+                    f"as the drivers escalate")
+                est, fits = estimate(sel)
+                if not fits:
+                    continue
+                rank = md_dryrun.rank_config(cell, impl, grid, False, sel=sel)
+                reset_launches()
+                with RecordCalls(DRYRUN_SEG * n_sec, n_sec) as rec:
+                    out = md_dryrun.run_rank(rank, DRYRUN_SEG, device=dev)
+            got = read_launches()
+            est_peak = est["mem_GiB"] * 2**30
+            ratio = out["peak_bytes"] / est_peak
+            bound = est["bound_time"] / est["steps"] * 1e3
+            pe = out["pe"]
+            log(f"    real run: {out['atoms']} atoms (box "
+                f"{tuple(round(b, 3) for b in out['box'])}), "
+                f"max_memory_allocated above the allocation at the reset "
+                f"({out['base_bytes']} B) {out['peak_bytes']} B = "
+                f"{out['peak_bytes'] / 2**30:.3f} GiB, "
+                f"estimate {est_peak / 2**30:.3f} GiB, ratio {ratio:.4f} "
+                f"(band {DRYRUN_BAND}); ms/step {out['ms_per_step']:.3f} "
+                f"(first run {out['ms_per_step_first']:.3f}) vs bound_time "
+                f"{bound:.3f} ms/step ({bound / out['ms_per_step']:.2%} of "
+                f"it); pe {pe}; atoms per step {out['n_atoms']}; launches "
+                f"{got}")
+            if not (np.all(np.isfinite(pe))
+                    and all(n == out["atoms"] for n in out["n_atoms"])):
+                raise AssertionError(f"{est['cell']}: non-finite energy or "
+                                     f"atoms lost")
+            if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+                misses.append((est["cell"], ratio))
+            if impl == "cheb_pallas":
+                for k_ in launches:
+                    if got[k_] < 1:
+                        raise AssertionError(f"{est['cell']}: {k_} was not "
+                                             f"launched")
+                    launches[k_] += got[k_]
+                for t, args in enumerate(rec.args):
+                    label = f"dry-run rank {name}, section {t}"
+                    kernels[f"{name}{t}"] = kernel_case(
+                        label, *args, dev,
+                        torch.Generator(device=dev).manual_seed(SEED),
+                        sample=False, chunked_lib=True)
+                del rec
+            torch.cuda.empty_cache()
+    if misses:
+        raise AssertionError(f"real peak / estimate outside {DRYRUN_BAND}: "
+                             f"{misses}")
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1436,6 +1612,7 @@ def main() -> int:
     _, dist_launches = phase_distributed(COPPER_DP, params, dev, scan)
     by_path.update(dist_launches)
     by_path["train_check"] = phase_train(COPPER_DP, dev)
+    _, by_path["dryrun"] = phase_dryrun(dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches: the main path's (phase 3); each path's run beside it
     print(json.dumps({"kernels": [

@@ -15,14 +15,27 @@ while the current stream is being captured into a CUDA graph launches
 nothing: it counts in ``fwd_captured``/``bwd_captured`` instead, and the
 graph's owner adds what one replay launches with :func:`count_replay` each
 time it replays the graph (``md/stepper.py``).
+
+Both kernels are ``torch.library`` custom ops, ``repro_torch::dp_fused_fwd``
+and ``repro_torch::dp_fused_bwd``: the dispatcher sees each launch as one
+op. Each has a fake implementation (empty outputs of the right shapes), so a
+trace under ``FakeTensorMode`` runs the model through them without reaching
+``nvcc`` or ``ctypes`` (a fake tensor has no data, so nothing is hidden),
+and a FLOP formula for ``torch.utils.flop_counter`` from
+:func:`kernel_cost`, the same count the smoke run's bounds use. A fake trace
+has no live counts, so the formula counts every slot as live, times the
+share set by :func:`live_fraction` (1 unless a caller states the expected
+live share of the slots).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.dp_fused import build, ref
 
@@ -98,13 +111,43 @@ def _check_inputs(s, env, coeffs, counts) -> Tuple[int, int, int, int]:
     return a, n, k, m
 
 
-def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
-              counts: torch.Tensor, lower: float, upper: float
-              ) -> torch.Tensor:
-    """T (A, 4, M) from s (A, N), env (A, N, 4), C (K, M), counts (A,)."""
-    a, n, k, m = _check_inputs(s, env, coeffs, counts)
-    if s.device.type == "cpu":
-        return ref.fused_fwd_ref(s, env, coeffs, counts, lower, upper)
+def kernel_cost(live: float, a: int, n: int, k: int, m: int
+                ) -> Dict[str, Tuple[float, float]]:
+    """(bytes, FP32 operations) of each kernel's work on (A, N) rows with
+    ``live`` live slots in all, K Chebyshev terms and M columns: each input
+    byte read once (live slots only), each output byte written once, and
+    the operations of the factored algorithm. Forward: 8K (env^T B) + 3K
+    (the recurrence) per live slot, 8KM (S C) per atom. Backward: ~24K per
+    live slot (both recurrences, B D, B' D, env . B'D), 8KM (C dT^T) per
+    atom; it writes every slot of ds and denv (zeros past the counts)."""
+    read = live * 20 + k * m * 4 + a * 4
+    return {
+        "dp_fused_fwd": (read + a * 4 * m * 4, live * 11 * k + a * 8 * k * m),
+        "dp_fused_bwd": (read + a * 4 * m * 4 + a * n * 20,
+                         live * 24 * k + a * 8 * k * m),
+    }
+
+
+# read by the registered FLOP formulas, which take only the op's arguments:
+# a dry run states the share around its trace with live_fraction
+_live_share = 1.0
+
+
+@contextlib.contextmanager
+def live_fraction(share: float) -> Iterator[None]:
+    """Count ``share`` of every row's slots as live in the FLOP formula
+    while the block runs (a dry run's expected neighbours over N)."""
+    global _live_share
+    old, _live_share = _live_share, float(share)
+    try:
+        yield
+    finally:
+        _live_share = old
+
+
+def _launch_fwd(s, env, coeffs, counts, lower, upper):
+    a, n = s.shape
+    k, m = coeffs.shape
     kl = build.load()
     out = torch.empty((a, 4, m), dtype=torch.float32, device=s.device)
     if a == 0:
@@ -120,14 +163,9 @@ def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
     return out
 
 
-def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
-              counts: torch.Tensor, dt: torch.Tensor, lower: float,
-              upper: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ds (A, N) and denv (A, N, 4) from dT (A, 4, M); zero past counts."""
-    a, n, k, m = _check_inputs(s, env, coeffs, counts)
-    _require(dt, "dt", (a, 4, m), torch.float32, s.device)
-    if s.device.type == "cpu":
-        return ref.fused_bwd_ref(s, env, coeffs, counts, dt, lower, upper)
+def _launch_bwd(s, env, coeffs, counts, dt, lower, upper):
+    a, n = s.shape
+    k, m = coeffs.shape
     kl = build.load()
     ds = torch.empty((a, n), dtype=torch.float32, device=s.device)
     denv = torch.empty((a, n, 4), dtype=torch.float32, device=s.device)
@@ -142,6 +180,73 @@ def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
     kl.check(code, "dp_fused_bwd launch")
     _count("bwd")
     return ds, denv
+
+
+@torch.library.custom_op(
+    "repro_torch::dp_fused_fwd", mutates_args=(),
+    schema="(Tensor s, Tensor env, Tensor coeffs, Tensor counts, "
+           "float lower, float upper) -> Tensor")
+def _fwd_op(s, env, coeffs, counts, lower, upper):
+    if s.device.type == "cpu":
+        return ref.fused_fwd_ref(s, env, coeffs, counts, lower, upper)
+    return _launch_fwd(s, env, coeffs, counts, lower, upper)
+
+
+@_fwd_op.register_fake
+def _(s, env, coeffs, counts, lower, upper):
+    return s.new_empty((s.shape[0], 4, coeffs.shape[1]))
+
+
+@torch.library.custom_op(
+    "repro_torch::dp_fused_bwd", mutates_args=(),
+    schema="(Tensor s, Tensor env, Tensor coeffs, Tensor counts, Tensor dt, "
+           "float lower, float upper) -> (Tensor, Tensor)")
+def _bwd_op(s, env, coeffs, counts, dt, lower, upper):
+    if s.device.type == "cpu":
+        return ref.fused_bwd_ref(s, env, coeffs, counts, dt, lower, upper)
+    return _launch_bwd(s, env, coeffs, counts, dt, lower, upper)
+
+
+@_bwd_op.register_fake
+def _(s, env, coeffs, counts, dt, lower, upper):
+    return s.new_empty(s.shape), s.new_empty((*s.shape, 4))
+
+
+def _formula_flops(name: str, s_shape, coeffs_shape) -> int:
+    a, n = s_shape
+    k, m = coeffs_shape
+    return int(kernel_cost(_live_share * a * n, a, n, k, m)[name][1])
+
+
+@register_flop_formula(torch.ops.repro_torch.dp_fused_fwd)
+def _fwd_flops(s_shape, env_shape, coeffs_shape, counts_shape, lower, upper,
+               *args, out_shape=None, **kwargs) -> int:
+    return _formula_flops("dp_fused_fwd", s_shape, coeffs_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.dp_fused_bwd)
+def _bwd_flops(s_shape, env_shape, coeffs_shape, counts_shape, dt_shape,
+               lower, upper, *args, out_shape=None, **kwargs) -> int:
+    return _formula_flops("dp_fused_bwd", s_shape, coeffs_shape)
+
+
+def fused_fwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
+              counts: torch.Tensor, lower: float, upper: float
+              ) -> torch.Tensor:
+    """T (A, 4, M) from s (A, N), env (A, N, 4), C (K, M), counts (A,)."""
+    _check_inputs(s, env, coeffs, counts)
+    return torch.ops.repro_torch.dp_fused_fwd(s, env, coeffs, counts,
+                                              float(lower), float(upper))
+
+
+def fused_bwd(s: torch.Tensor, env: torch.Tensor, coeffs: torch.Tensor,
+              counts: torch.Tensor, dt: torch.Tensor, lower: float,
+              upper: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ds (A, N) and denv (A, N, 4) from dT (A, 4, M); zero past counts."""
+    a, n, k, m = _check_inputs(s, env, coeffs, counts)
+    _require(dt, "dt", (a, 4, m), torch.float32, s.device)
+    return torch.ops.repro_torch.dp_fused_bwd(s, env, coeffs, counts, dt,
+                                              float(lower), float(upper))
 
 
 class FusedEnvTabContract(torch.autograd.Function):

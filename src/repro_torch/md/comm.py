@@ -16,7 +16,7 @@ offers the same operations with ``jax.lax``'s semantics:
   psum(x, axis)        the sum over one axis; every rank of the axis gets the
                        same tensor. ``pmax`` likewise.
 
-Two implementations run the same per-rank code:
+Three implementations run the same per-rank code:
 
   LocalComm  all ranks in one process on one device, one thread per rank,
              each with its own CUDA stream on the card. Tensors change hands
@@ -32,6 +32,16 @@ Two implementations run the same per-rank code:
              the call's tensors tagged by position; two calls that name the
              same peer (the plus and minus rings of a 2-brick axis) never mix.
              ``psum``/``pmax`` are ``all_reduce`` over the axis's subgroup.
+
+  DryRunComm one rank of a grid of any size, alone: ``ppermute`` gives the
+             rank its own send buffers back (copies, as DistComm's receive
+             buffers are new tensors), so every exchange has its real
+             shapes; ``psum``/``pmax`` return (a copy of) their input. It
+             counts every collective's bytes into a ``CollectiveStats``
+             (``analysis/roofline.py``). ``launch/md_dryrun.py`` traces a
+             production rank with it; with ``self_image=True`` it stands a
+             single brick in for a periodic ring (its halo is its own far
+             faces) for real runs of that rank on one card.
 
 ``run(fn)`` calls ``fn(rank)`` on every rank this process holds and returns
 ``{global rank: result}``; ``bricks`` lists the spatial indices held here.
@@ -52,6 +62,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 
 import torch
 
+from repro_torch.analysis import roofline
 from repro_torch.device import DeviceLike, resolve_device
 
 SPATIAL = "spatial"
@@ -80,6 +91,11 @@ class RankComm(abc.ABC):
 
     SPATIAL = SPATIAL
     MODEL = MODEL
+    #: True when ``ppermute`` hands a rank its own buffers back in place of
+    #: its neighbours' (a single periodic brick): the halo and migration
+    #: sweeps then shift what arrives by one brick width, as a ring of one
+    #: brick would (``md/domain.py``)
+    self_image = False
     n_spatial: int
     n_model: int
     spatial_index: int
@@ -367,3 +383,78 @@ class DistComm(RankComm):
 
     def pmax(self, x, axis):
         return self._reduce(x, _check_axis(axis), self._dist.ReduceOp.MAX)
+
+
+# ----------------------------------------------------- one rank, counted
+
+class DryRunComm(RankComm):
+    """Rank ``(spatial_index, model_index)`` of an ``n_spatial x n_model``
+    grid, run alone, counting its collectives.
+
+    ``ppermute`` returns copies of the rank's own send buffers and
+    ``psum``/``pmax`` a copy of their input: the shapes (and allocations)
+    of a real exchange, not its values. ``stats`` sums each call's buffer
+    bytes by kind (``collective-permute`` for ``ppermute``, ``all-reduce``
+    for ``psum``/``pmax``) and its wire bytes, the buffer times
+    ``roofline._wire_factor`` with the axis size as the group size. Wire
+    bytes cross the pod axis (DCN) for a reduction over the spatial axis
+    when that axis spans ``pods > 1`` pods, as the reference's HLO
+    accounting finds; a ``ppermute`` counts inside the pod, since the
+    reference's ``_group_crosses_pod`` never sees a collective-permute
+    cross. A reduction over an axis of one rank moves nothing.
+    """
+
+    def __init__(self, n_spatial: int, n_model: int = 1,
+                 spatial_index: int = 0, model_index: int = 0,
+                 pods: int = 1, self_image: bool = False):
+        self.n_spatial, self.n_model = int(n_spatial), int(n_model)
+        if not (0 <= spatial_index < self.n_spatial
+                and 0 <= model_index < self.n_model):
+            raise ValueError(f"rank ({spatial_index}, {model_index}) is not "
+                             f"on the {n_spatial} x {n_model} grid")
+        if self.n_spatial % int(pods):
+            raise ValueError(f"{pods} pods do not split {n_spatial} spatial "
+                             f"ranks")
+        self.spatial_index, self.model_index = spatial_index, model_index
+        self.pods = int(pods)
+        self.self_image = bool(self_image)
+        self.stats = roofline.empty_stats()
+
+    @property
+    def bricks(self) -> Tuple[int, ...]:
+        return (self.spatial_index,)
+
+    def run(self, fn: Callable[[RankComm], Any]) -> Dict[int, Any]:
+        return {self.rank: fn(self)}
+
+    def _count(self, kind: str, nbytes: float, group: int,
+               dcn: bool) -> None:
+        st = self.stats
+        st.bytes_by_kind[kind] += nbytes
+        wire = nbytes * roofline._wire_factor(kind, group)
+        if dcn:
+            st.wire_bytes_dcn += wire
+        else:
+            st.wire_bytes_ici += wire
+        st.count += 1
+
+    def ppermute(self, xs, pairs):
+        xs = tuple(xs)
+        self._count("collective-permute",
+                    sum(x.numel() * x.element_size() for x in xs),
+                    self.n_spatial, False)
+        return tuple(x.clone() for x in xs)
+
+    def _reduce(self, x, axis):
+        n = self.axis_size(_check_axis(axis))
+        if n == 1:
+            return x
+        self._count("all-reduce", x.numel() * x.element_size(), n,
+                    axis == SPATIAL and self.pods > 1)
+        return x.clone()
+
+    def psum(self, x, axis):
+        return self._reduce(x, axis)
+
+    def pmax(self, x, axis):
+        return self._reduce(x, axis)

@@ -403,10 +403,14 @@ def _halo_sweep(comm, pos, typ, mask, spec: DomainSpec, dim: int,
     fl_pos, fl_typ, fl_valid = comm.ppermute((hi_pos, hi_typ, hi_valid),
                                              plus_pairs)
     # shift ghosts into this brick's coordinate frame (periodic along dim)
-    if coord_d == 0:                  # from brick n-1, across the wrap
-        fl_pos = _shift_axis(fl_pos, dim, -box_d)
-    if coord_d == n_d - 1:            # from brick 0, across the wrap
-        fr_pos = _shift_axis(fr_pos, dim, box_d)
+    if comm.self_image:               # my own far faces: a ring of one
+        fl_pos = _shift_axis(fl_pos, dim, -width_d)
+        fr_pos = _shift_axis(fr_pos, dim, width_d)
+    else:
+        if coord_d == 0:              # from brick n-1, across the wrap
+            fl_pos = _shift_axis(fl_pos, dim, -box_d)
+        if coord_d == n_d - 1:        # from brick 0, across the wrap
+            fr_pos = _shift_axis(fr_pos, dim, box_d)
 
     ghost_pos = torch.cat([fl_pos, fr_pos], dim=0)
     ghost_typ = torch.cat([fl_typ, fr_typ], dim=0)
@@ -488,6 +492,10 @@ class _Local(NamedTuple):
     """The per-brick functions of one distributed MD configuration."""
     forces: Callable      # (rank, params, pos, typ, mask, box) -> ForceOut
     step: Callable        # (rank, params, SlabState, ens, box, baro) -> ...
+    #: the brick cell list (``neighbor="cells"``; ``None`` for brute force):
+    #: (pos_all, typ_all, mask_all, brick_lo, center_start, box=, widths=)
+    #: -> (nlist, overflow)
+    neighbors: Optional[Callable] = None
 
 
 class ForceOut(NamedTuple):
@@ -722,7 +730,7 @@ def make_local_md_step(cfg: Optional[DPConfig], spec: DomainSpec,
         }
         return (SlabState(pos, vel, typ, mask, force), ens, box, baro), thermo
 
-    return _Local(forces, step)
+    return _Local(forces, step, nbr_fn)
 
 
 class DistributedStep:
@@ -757,9 +765,8 @@ class DistributedStep:
         step = self.local.step
 
         def per_brick(rank, brick, ens_b, baro_r):
-            return stepper.run_steps(
-                lambda c, p: _carry_step(step, rank, p, c),
-                (brick, ens_b, box, baro_r), n_steps, params)
+            return run_brick_steps(rank, step, params,
+                                   (brick, ens_b, box, baro_r), n_steps)
 
         return self._finish(per_brick, state, ens, baro)
 
@@ -786,6 +793,14 @@ class DistributedStep:
 def _carry_step(step, rank, params, carry):
     brick, ens, box, baro = carry
     return step(rank, params, brick, ens, box, baro)
+
+
+def run_brick_steps(rank, step, params, carry, n_steps: int):
+    """``n_steps`` of ``step`` (a ``make_local_md_step(...).step``) on one
+    rank from ``carry = (brick, ens, box, baro)``; thermo stacked
+    ``(n_steps,)``."""
+    return stepper.run_steps(lambda c, p: _carry_step(step, rank, p, c),
+                             carry, n_steps, params)
 
 
 def make_distributed_md_step(cfg: Optional[DPConfig], spec: DomainSpec, comm,
@@ -1002,6 +1017,9 @@ def _migrate_local(rank, pos, vel, typ, mask, spec: DomainSpec, box=None):
                 pos, vel, typ, mask, spec, face_lo, width, a)
             in_l = rank.ppermute(right_pkt, topo.plus_ring(a))
             in_r = rank.ppermute(left_pkt, topo.minus_ring(a))
+            if rank.self_image:       # my own leavers re-enter across a face
+                in_l = (_shift_axis(in_l[0], a, -width),) + in_l[1:]
+                in_r = (_shift_axis(in_r[0], a, width),) + in_r[1:]
             (pos, vel, typ, mask), m_ovf = merge_arrivals(
                 stayers, in_l, in_r, coord, spec, box, a)
             ovfs.append(torch.maximum(pack_ovf, m_ovf))
@@ -1094,22 +1112,31 @@ class OuterMDProgram:
         spec, step = self.spec, self.step.local.step
 
         def per_brick(rank, brick, ens_b, baro_r):
-            carry = (brick, ens_b, box, baro_r)
-            ths = []
-            for _ in range(n_segments):
-                brick, ens_b, box_c, baro_c = carry
-                brick, mig = _migrate_brick(rank, brick, spec, box_c)
-                carry, th = stepper.run_steps(
-                    lambda c, p: _carry_step(step, rank, p, c),
-                    (brick, ens_b, box_c, baro_c), seg_len, params)
-                th["mig_overflow"] = mig
-                ths.append(th)
-            return carry, {k: torch.stack([t[k] for t in ths])
-                           for k in ths[0]}
+            return run_outer_brick(rank, step, spec, params,
+                                   (brick, ens_b, box, baro_r), n_segments,
+                                   seg_len)
 
         (state, ens, box, baro), th = self.step._finish(per_brick, state,
                                                         ens, baro)
         return state, ens, box, baro, th
+
+
+def run_outer_brick(rank, step, spec: DomainSpec, params, carry,
+                    n_segments: int, seg_len: int):
+    """One rank's share of :meth:`OuterMDProgram.run`: ``n_segments`` rounds
+    of the staged migration sweeps then ``seg_len`` steps of ``step`` (a
+    ``make_local_md_step(...).step``) from ``carry = (brick, ens, box,
+    baro)``. Returns the carry and the thermo stacked ``(n_segments,
+    seg_len)``, with ``mig_overflow`` ``(n_segments, ndim)``."""
+    ths = []
+    for _ in range(n_segments):
+        brick, ens_b, box_c, baro_c = carry
+        brick, mig = _migrate_brick(rank, brick, spec, box_c)
+        carry, th = run_brick_steps(rank, step, params,
+                                    (brick, ens_b, box_c, baro_c), seg_len)
+        th["mig_overflow"] = mig
+        ths.append(th)
+    return carry, {k: torch.stack([t[k] for t in ths]) for k in ths[0]}
 
 
 def make_outer_md_program(cfg: Optional[DPConfig], spec: DomainSpec, comm,

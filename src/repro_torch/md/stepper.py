@@ -63,6 +63,10 @@ def run_steps(step_fn: Callable, carry: Any, n_steps: int, *aux: Any):
     return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+#: the reference's name for the inner loop (a ``lax.scan`` there)
+scan_segment = run_steps
+
+
 class SegmentEngine:
     """Runs ``step_fn(carry, *aux) -> (carry, per_step_out)`` for ``n_steps``.
 
@@ -251,6 +255,22 @@ def md_segment_engine(potential: api.Potential, ensemble: api.Ensemble,
                       ) -> SegmentEngine:
     """Engine whose step is one full kick-drift-(force)-kick MD step."""
     return SegmentEngine(make_md_step(potential, ensemble, barostat))
+
+
+def make_vv_step(cfg_run: DPConfig, impl: Optional[str],
+                 nsel_norm: Optional[int]) -> Callable:
+    """Legacy DP + NVE step body (the reference's shim over
+    :func:`make_md_step`)."""
+    return make_md_step(api.DPPotential(cfg_run, impl, nsel_norm), api.NVE())
+
+
+def vv_segment_engine(cfg_run: DPConfig, impl: Optional[str],
+                      nsel_norm: Optional[int]) -> SegmentEngine:
+    """Legacy DP + NVE engine (shim over :func:`md_segment_engine`). The
+    reference's ``donate`` flag is JAX buffer donation and has no
+    counterpart here."""
+    return md_segment_engine(api.DPPotential(cfg_run, impl, nsel_norm),
+                             api.NVE())
 
 
 # ------------------------------------------------ carried state, by value
@@ -464,6 +484,16 @@ def md_outer_engine(potential: api.Potential, ensemble: api.Ensemble,
                           inner.box, inner.baro), th
 
     return OuterEngine(outer_seg)
+
+
+def vv_outer_engine(cfg_run: DPConfig, impl: Optional[str],
+                    nsel_norm: Optional[int], spec: neighbors.NeighborSpec,
+                    box_key: Tuple[float, ...]) -> OuterEngine:
+    """Legacy DP + NVE outer engine (shim over :func:`md_outer_engine`), its
+    cell grid that of the box ``box_key``."""
+    return md_outer_engine(api.DPPotential(cfg_run, impl, nsel_norm),
+                           api.NVE(), spec,
+                           grid_key_for(spec, np.asarray(box_key, float)))
 
 
 def chunk_schedule(steps: int, rebuild_every: int,

@@ -423,3 +423,120 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(m_g[k].cpu(), m_c[k], rtol=1e-5, atol=0)
     assert new_g.step.device.type == "cuda" and int(new_g.step) == 1
+
+
+# ------------------------------------------------ the dry run's shape-only path
+
+def _tiny_copper_args(dev):
+    """Tabulated tiny-model params and a jittered fcc_copper(3,3,3) with its
+    brute-force neighbor list, on ``dev``."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import DPConfig
+    from repro_torch.md import lattice, neighbors
+
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(24, 24, 24), table_lower=-1.0,
+                   table_upper=9.0)
+    params = dp_model.tabulate_model(dp_model.init_dp_params(
+        torch.Generator().manual_seed(0), cfg, device=dev), cfg, "cheb")
+    pos, typ, box = lattice.fcc_copper(3, 3, 3)
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor(np.mod(pos + rng.normal(0, 0.05, pos.shape), box),
+                          dtype=torch.float32, device=dev)
+    typ = torch.as_tensor(typ, dtype=torch.int64, device=dev)
+    box = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    nlist, _ = neighbors.brute_force_neighbors(
+        pos, typ, neighbors.NeighborSpec(rcut_nbr=cfg.rcut, sel=cfg.sel), box)
+    return cfg, (params, pos, nlist, typ, box)
+
+
+def _energy_forces(cfg):
+    from repro_torch.core import dp_model
+
+    def fn(params, pos, nlist, typ, box):
+        return dp_model.dp_energy_forces(params, cfg, pos, nlist, typ, box,
+                                         impl="cheb_pallas")
+    return fn
+
+
+@pytest.mark.cuda
+def test_fake_cuda_trace_reaches_neither_nvcc_nor_ctypes(dev, monkeypatch):
+    """A fake CUDA trace of the fused rung runs the custom ops' fake
+    implementations: the kernel library is never built or loaded, nothing
+    launches, and the counter sees each kernel with the package's FLOP
+    formula; the fake trace's numbers equal a real run's on the card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.analysis import op_cost
+    from repro_torch.kernels.dp_fused import build
+
+    cfg, args = _tiny_copper_args(dev)
+    real = op_cost.analyze_fn(_energy_forces(cfg), *args)   # builds, launches
+    torch.cuda.synchronize()
+
+    def refuse(*a, **k):
+        raise AssertionError("a fake trace reached the kernel build")
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(build, "_nvcc", refuse)
+    fw0, bw0 = ops.fwd_launches, ops.bwd_launches
+    mode = FakeTensorMode()
+    fake_args = pytree.tree_map_only(torch.Tensor, mode.from_tensor, args)
+    with mode:
+        fake = op_cost.analyze_fn(_energy_forces(cfg), *fake_args)
+    assert (ops.fwd_launches, ops.bwd_launches) == (fw0, bw0)
+    a, n = args[2].shape
+    k, m = args[0]["table"]["nets"]["0"]["coeffs"].shape
+    want = {name: int(f) for name, (_, f) in
+            ops.kernel_cost(a * n, a, n, k, m).items()}
+    for name, flops in want.items():
+        assert fake.flops_by_op[f"repro_torch.{name}"] == flops
+    assert (fake.flops, fake.peak_bytes, fake.bytes_accessed) == (
+        real.flops, real.peak_bytes, real.bytes_accessed)
+
+
+@pytest.mark.cuda
+def test_flop_formula_counts_on_the_card_as_on_the_cpu(dev):
+    """The same evaluation counted on the card and on the CPU gives the
+    same FLOPs, kernel by kernel (the formula reads shapes only)."""
+    from repro_torch.analysis import op_cost
+
+    cfg, args = _tiny_copper_args(dev)
+    on_card = op_cost.analyze_fn(_energy_forces(cfg), *args)
+    _, cpu_args = _tiny_copper_args(torch.device("cpu"))
+    on_cpu = op_cost.analyze_fn(_energy_forces(cfg), *cpu_args)
+    assert on_card.flops == on_cpu.flops > 0
+    assert on_card.flops_by_op == on_cpu.flops_by_op
+
+
+@pytest.mark.cuda
+def test_custom_op_counts_eager_captured_and_replayed_launches(dev):
+    """Through the custom ops an eager call launches and counts once; a
+    call under CUDA-graph capture counts as captured, not launched; each
+    replay adds what the graph recorded and gives the eager result."""
+    s, env, c, cnt, dt = _inputs(7, 64, 96, 32, 128, dev)
+    fw0, bw0 = ops.fwd_launches, ops.bwd_launches
+    out = ops.fused_fwd(s, env, c, cnt, LOWER, UPPER)
+    ds, denv = ops.fused_bwd(s, env, c, cnt, dt, LOWER, UPPER)
+    torch.cuda.synchronize()
+    assert (ops.fwd_launches - fw0, ops.bwd_launches - bw0) == (1, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up, as capture requires
+        ops.fused_fwd(s, env, c, cnt, LOWER, UPPER)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    fw1, fc1, bc1 = ops.fwd_launches, ops.fwd_captured, ops.bwd_captured
+    with torch.cuda.graph(graph):
+        g_out = ops.fused_fwd(s, env, c, cnt, LOWER, UPPER)
+        g_ds, g_denv = ops.fused_bwd(s, env, c, cnt, dt, LOWER, UPPER)
+    assert (ops.fwd_captured - fc1, ops.bwd_captured - bc1) == (1, 1)
+    assert ops.fwd_launches == fw1
+    for _ in range(2):
+        graph.replay()
+        ops.count_replay(1, 1)
+    torch.cuda.synchronize()
+    assert ops.fwd_launches - fw1 == 2
+    assert torch.equal(g_out, out) and torch.equal(g_denv, denv)
+    assert torch.equal(torch.nan_to_num(g_ds), torch.nan_to_num(ds))

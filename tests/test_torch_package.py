@@ -45,7 +45,7 @@ def test_port_imports_neither_jax_nor_reference():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 36 and bad == "[]", out.stdout
+    assert int(n) >= 41 and bad == "[]", out.stdout
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
