@@ -90,6 +90,20 @@ Phases; any failure exits non-zero before the result line:
      traced again at that sel); ms/step against the roofline's bound. The
      kernels at the cheb_pallas runs' shapes against ref.py and timed
      (path "dryrun").
+ 13. LM serving (``repro_torch.launch.serve_lm.serve``: prefill, then greedy
+     decode through ``make_serve_step``), 4 requests of prompt 256 + 32
+     decode steps, weights from seed 0 drawn on the card: qwen3-1.7b and
+     granite-moe-1b-a400m at full CONFIG, served in bf16 as published and
+     timed, then checked: (a) f32 decode == teacher-forced forward (rtol
+     1e-3, atol 1e-3 x max|logit|), (b) the bf16 decode adds no error of its
+     own (mean and 99.9th-percentile distance from the f32 forward within
+     1.25x the bf16 forward's; the reference's rtol 0.08 / atol 0.05
+     printed), (c) finite logits and the cache at 288; granite's checks
+     route drop-free and (b) replays the forward's routing. xlstm-125m,
+     whisper-base (1,500 stub frames) and recurrentgemma-9b (full width, 3
+     of 38 layers) in f32 with (a) and (c). Prefill and decode times, peak
+     memory, the decode step's byte bound, a profile of one qwen3 decode
+     step; dp_fused launches (0) under path "lm_serve".
 
 Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
 ``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
@@ -1161,12 +1175,29 @@ TRAIN_KINDS = (("GEMM", ("gemm", "cutlass", "xmma", "cublas")),
                ("reductions", ("reduce",)))
 
 
-def train_kind(key):
+def kernel_kind(key, kinds):
+    """The first kind of ``kinds`` (name, fragments) whose fragment the
+    kernel's name holds."""
     low = key.lower()
-    for kind, frags in TRAIN_KINDS:
+    for kind, frags in kinds:
         if any(f in low for f in frags):
             return kind
     return "other elementwise"
+
+
+def time_by_kind(prof, per, kinds):
+    """A profile's device time in ms by kind of kernel and its kernel
+    launches, each per ``per`` calls; None if it recorded no device time."""
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and dev_us(e) > 0]
+    if not rows:
+        return None
+    by_kind = {}
+    for e in rows:
+        k = kernel_kind(e.key, kinds)
+        by_kind[k] = by_kind.get(k, 0.0) + dev_us(e) / per / 1e3
+    return by_kind, sum(e.count for e in rows) // per
 
 
 def on_device(x, dev):
@@ -1189,17 +1220,12 @@ def profile_train_steps(step, state, mb, step_ms):
             state, _ = step(state, mb)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 2 * 1e3
-    rows = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and dev_us(e) > 0]
-    if not rows:
+    timed = time_by_kind(prof, 2, TRAIN_KINDS)
+    if timed is None:
         log("    profile of a training step: the profiler recorded no "
             "device time")
         return
-    kinds = {}
-    for e in rows:
-        k = train_kind(e.key)
-        kinds[k] = kinds.get(k, 0.0) + dev_us(e) / 2 / 1e3
+    kinds = timed[0]
     total = sum(kinds.values())
     log(f"    profile of a training step: {total:.3f} ms of kernels; "
         f"device busy {total / wall:.1%} of the profiled wall ({wall:.3f} "
@@ -1580,6 +1606,397 @@ def phase_dryrun(dev):
                              f"{misses}")
     return kernels, launches
 
+# ----------------------------------------------------------------- phase 13
+
+LM_BATCH = 4
+LM_PROMPT = 256
+LM_STEPS = 32        # decode steps: the cache ends at LM_PROMPT + LM_STEPS
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+F32_TOL = 1e-3       # check (a): rtol, and atol as a share of max|logit|
+BF16_TOL = (0.08, 0.05)      # the reference's rtol, atol (test_lm_consistency)
+BF16_RATIO = 1.25    # check (b): decode's error at most this x the forward's
+BF16_QUANTILE = 0.999        # ... in mean and at this quantile
+# leaves that compute in f32 (never cast to the compute dtype)
+LM_F32_LEAVES = ("router", "shared_gate", "w_rgate", "w_igate", "r_zifo",
+                 "lam")
+LM_KINDS = (("GEMM", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+            ("casts and copies", ("copy", "cast", "convert")),
+            ("reductions, softmax", ("reduce", "softmax")),
+            ("index / scatter / sort", ("index", "scatter", "gather",
+                                        "sort", "radix")))
+
+
+def lm_decode_bytes(cfg, params, batch):
+    """(weight bytes read, cast bytes) of one reference-faithful decode
+    step: every f32 master leaf read once, but of an untied embedding
+    table only the batch's rows (and of whisper's position table one row);
+    each leaf of two or more dimensions that is cast to a bf16 compute
+    dtype writes its copy and the product reads it (2 + 2 bytes an
+    element). MoE decode runs every expert's (capacity-padded) buffer, so
+    every expert's weights count."""
+    from repro_torch.train import tree
+
+    tied = cfg.tie_embeddings or cfg.family in ("hybrid", "encdec")
+    weight = cast = 0
+    for t, path in zip(*tree.flatten_with_paths(params)):
+        n = t.numel()
+        if path == "embed" and not tied:
+            n = batch * t.shape[1]
+        elif path == "pos_dec":
+            n = t.shape[1]
+        weight += n * t.element_size()
+        if (cfg.dtype != cfg.param_dtype and t.dim() >= 2
+                and path.split("/")[-1] not in LM_F32_LEAVES
+                and path != "pos_dec" and not (path == "embed" and not tied)):
+            cast += n * 4
+    return weight, cast
+
+
+class RoutingTape:
+    """Records the experts the port's MoE router picks, layer by layer and
+    position by position, or replays a recording: a replayed call routes
+    each token to the recorded experts, with gates from its own router
+    probabilities. Calls cycle through the layers in order; each advances
+    its layer's position by its sequence length (a forward: the whole
+    sequence; a prefill: the prompt; a decode step: one token)."""
+
+    def __init__(self, n_layers, replay=None):
+        self.n_layers, self.replay = n_layers, replay
+        self.ids = [[] for _ in range(n_layers)]
+        self.pos = [0] * n_layers
+        self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route
+
+        def route(p, cfg, x):
+            layer = self.calls % self.n_layers
+            self.calls += 1
+            gates, ids, aux = self.orig(p, cfg, x)
+            if self.replay is None:
+                self.ids[layer].append(ids)
+                return gates, ids, aux
+            start = self.pos[layer]
+            self.pos[layer] += x.shape[1]
+            ids = self.replay[layer][:, start:start + x.shape[1]]
+            gates = torch.softmax(x.float() @ p["router"], dim=-1).gather(
+                -1, ids)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), \
+                ids, aux
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def recorded(self):
+        return [torch.cat(calls, dim=1) for calls in self.ids]
+
+
+def lm_teacher_forced(api, params, seq, p_len, frames=None):
+    """The forward over ``seq``: the logits at position p_len - 1 on."""
+    kw = {} if frames is None else {"frames": frames}
+    with torch.inference_mode():
+        logits, _ = api.forward(params, tokens=seq, **kw)
+    return logits[:, p_len - 1:].float()
+
+
+def lm_decode_along(api, params, seq, p_len):
+    """prefill of seq[:, :p_len], then a decode step for each later token of
+    ``seq`` (fed, not sampled): the logits at position p_len - 1 on."""
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, seq[:, :p_len], seq.shape[1])
+        out = [logits]
+        for t in range(p_len, seq.shape[1]):
+            logits, cache = api.decode_step(params, seq[:, t:t + 1], cache)
+            out.append(logits)
+    return torch.stack(out, dim=1).float()
+
+
+def lm_serve_pass(tag, api, params, prompts, frames=None, base=0):
+    """One serving pass (prompt + LM_STEPS greedy decode steps) with its
+    numbers; peak memory above ``base`` (what earlier phases left
+    allocated). Check (c): every logit finite, the cache at P + LM_STEPS.
+    Returns the result and the token sequence the decode steps were fed
+    (the prompt, then every sampled token but the last)."""
+    from repro_torch.launch.serve_lm import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(api, params, prompts, LM_STEPS, frames, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    b, p_len = prompts.shape
+    length = int(res.cache.length)
+    finite = all(bool(torch.isfinite(t).all()) for t in res.logits)
+    log(f"    {tag}: prefill {res.prefill_ms:.3f} ms ("
+        f"{b * p_len / res.prefill_ms * 1e3:.1f} tokens/s), decode "
+        f"{res.ms_per_token:.3f} ms/token at batch {b} ("
+        f"{b / res.ms_per_token * 1e3:.1f} tokens/s), peak "
+        f"{peak / 2**30:.3f} GiB, cache length {length}")
+    if length != p_len + LM_STEPS or not finite:
+        raise AssertionError(f"{tag}: (c) cache length {length} or "
+                             f"non-finite logits")
+    return res, torch.cat([prompts, res.tokens[:, :-1]], dim=1)
+
+
+def lm_bound(tag, cfg, params, res):
+    weight, cast = lm_decode_bytes(cfg, params, LM_BATCH)
+    bound = (weight + cast) / HBM_BYTES_PER_S * 1e3
+    log(f"    {tag} decode byte bound: {weight / 1e9:.3f} GB of weights + "
+        f"{cast / 1e9:.3f} GB of casts over {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+        f" = {bound:.3f} ms; measured {res.ms_per_token:.3f} ms/token "
+        f"({bound / res.ms_per_token:.1%} of the bound)")
+
+
+def lm_check_f32(tag, got, want):
+    """Check (a): rtol 1e-3, atol 1e-3 x max|logit|."""
+    atol = F32_TOL * float(want.abs().max())
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= atol + F32_TOL * want.abs()).all())
+    log(f"    {tag}: max_abs_err {float(err.max()):.4e} (max|logit| "
+        f"{float(want.abs().max()):.3f}, rtol {F32_TOL:g}, atol {atol:.3e})"
+        f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _quantile(x, q):
+    """The q-quantile of |x|'s elements (torch.quantile takes at most 2^24)."""
+    flat = x.flatten()
+    k = max(1, int(round((1 - q) * flat.numel())))
+    return float(flat.topk(k).values[-1])
+
+
+def lm_check_bf16(got16, want16, want32):
+    """Check (b): the bf16 decode logits against the bf16 teacher-forced
+    forward at the reference's tolerance (printed), and held to this: the
+    decode adds no error of its own, its mean and 99.9th-percentile
+    distance from the f32 forward over the same tokens at most BF16_RATIO
+    x the bf16 forward's. At 28 layers 1e-5 of qwen3's logits fall outside
+    the reference's 2-layer tolerance (none at 2 layers) while both bf16
+    paths sit equally far from f32; the maximum over millions of logits
+    varies between runs (MoE: atomics), so it is printed, not held
+    (PERF.md §6)."""
+    rtol, atol = BF16_TOL
+    err = (got16 - want16).abs()
+    outside = float((err > atol + rtol * want16.abs()).float().mean())
+    d_dec, d_fwd = (got16 - want32).abs(), (want16 - want32).abs()
+    q_dec, q_fwd = (_quantile(d, BF16_QUANTILE) for d in (d_dec, d_fwd))
+    ok = (bool(torch.isfinite(got16).all())
+          and float(d_dec.mean()) <= BF16_RATIO * float(d_fwd.mean())
+          and q_dec <= BF16_RATIO * q_fwd)
+    log(f"    (b) bf16 decode vs bf16 forward: max_abs_err "
+        f"{float(err.max()):.4e}, mean {float(err.mean()):.4e}, "
+        f"{outside:.3e} of the logits outside rtol {rtol:g} / atol {atol:g}"
+        f"; distance from the f32 forward, decode against forward: mean "
+        f"{float(d_dec.mean()):.4e} / {float(d_fwd.mean()):.4e}, "
+        f"{BF16_QUANTILE:.1%} quantile {q_dec:.4e} / {q_fwd:.4e}, max "
+        f"{float(d_dec.max()):.4e} / {float(d_fwd.max()):.4e} (ratio limit "
+        f"{BF16_RATIO:g}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def profile_lm_decode(api, params, res):
+    """Device time of one decode step by kind of kernel, its launches and
+    the device's busy share of the profiled wall. The step rewrites the
+    cache's last position (the cache is full)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import make_serve_step
+
+    step = make_serve_step(api)
+    tok = res.tokens[:, -1:]
+    cache = res.cache._replace(length=res.cache.length - 1)
+    step(params, tok, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, tok, cache)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    timed = time_by_kind(prof, 1, LM_KINDS)
+    if timed is None:
+        log("    profile of a decode step: the profiler recorded no device "
+            "time")
+        return
+    kinds, launches = timed
+    total = sum(kinds.values())
+    log(f"    profile of one decode step: {total:.3f} ms of kernels in "
+        f"{launches} launches; device busy {total / wall:.1%} of the "
+        f"profiled wall ({wall:.3f} ms)")
+    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"      {v:8.3f} ms  {v / total:6.1%}  {k}")
+    log_kernels(prof, 1, "a decode step", top=8)
+
+
+def phase_lm_serve(dev):
+    """The LM zoo served on the card (``repro_torch.launch.serve_lm.serve``:
+    prefill, then greedy decode through ``make_serve_step``), batch 4,
+    prompt 256, 32 decode steps, weights from seed 0 drawn on the card.
+    qwen3-1.7b and granite-moe-1b-a400m at their full CONFIG, served in
+    bf16 as published (granite-moe at capacity factor 1.25) and timed;
+    then (a) in f32 (TF32 off) the prefill's last logits and every step's
+    equal the teacher-forced forward over the same tokens at rtol 1e-3,
+    atol 1e-3 x max|logit|; (b) the bf16 decode against the bf16 forward
+    (``lm_check_bf16``); (c) every logit finite, the cache at 256 + 32.
+    granite-moe's checks route drop-free (capacity_factor = n_experts /
+    top_k) and (b) replays the bf16 forward's routing in the decode and in
+    the f32 forward (``RoutingTape``): top-8-of-32 decisions flip between
+    the two bf16 computations. Then one f32 serving pass with (a) and (c)
+    for xlstm-125m, whisper-base (1,500 stub frames) and recurrentgemma-9b
+    at full width, depth cut to one rrl period; xlstm's (a) runs with its
+    sLSTM recurrent matrices at std 1/sqrt(head dim), its error at the
+    reference's init (chaotic) printed beside. Times, peak memory, the
+    decode step's byte bound, a profile of one qwen3 decode step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve_lm import serve
+    from repro_torch.models import build
+    from repro_torch.train import tree
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    log(f"[13] LM serving: batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_STEPS} greedy decode steps; weights from seed {SEED} drawn on "
+        f"the card; peak memory above the {base / 2**30:.3f} GiB that "
+        f"earlier phases left allocated")
+    failures = []
+
+    def prompts_for(cfg):
+        return torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                             generator=gen.manual_seed(SEED + 1), device=dev)
+
+    def init(arch, cfg):
+        t0 = time.perf_counter()
+        params = build(cfg).init(gen.manual_seed(SEED), device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in tree.leaves(params))
+        log(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab}; {n_par} "
+            f"parameters ({n_par * 4 / 1e9:.3f} GB f32), init "
+            f"{time.perf_counter() - t0:.2f} s")
+        return params
+
+    # -- dense and MoE at full width: timed bf16, then (a), (b), (c) -----
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        cfg = configs.get(arch)
+        params = init(arch, cfg)
+        prompts = prompts_for(cfg)
+        published = build(cfg)
+        serve(published, params, prompts, 2)      # warm-up: library handles
+        res, seq = lm_serve_pass(
+            "bf16 serving" + (f", capacity factor {cfg.moe.capacity_factor}"
+                              if cfg.family == "moe" else ""),
+            published, params, prompts, base=base)
+        lm_bound("bf16", cfg, params, res)
+        moe_cfg = cfg.family == "moe"
+        if moe_cfg:
+            m = cfg.moe
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                m, capacity_factor=m.n_experts / m.top_k))
+            log(f"    checks route drop-free: capacity_factor {m.n_experts}"
+                f" / {m.top_k} = {cfg.moe.capacity_factor:g}")
+        api16 = build(cfg)
+        api32 = build(dataclasses.replace(cfg, dtype="float32"))
+        res32, seq32 = lm_serve_pass("f32 serving", api32, params, prompts,
+                                     base=base)
+        lm_bound("f32", api32.cfg, params, res32)
+        if not lm_check_f32("(a) f32 decode vs teacher-forced forward",
+                            torch.stack(res32.logits, dim=1).float(),
+                            lm_teacher_forced(api32, params, seq32,
+                                              LM_PROMPT)):
+            failures.append(f"{arch} (a)")
+        del res32, seq32
+        if moe_cfg:
+            res16, seq = lm_serve_pass("bf16 serving, drop-free", api16,
+                                       params, prompts, base=base)
+            with RoutingTape(cfg.n_layers) as served_tape:
+                lm_decode_along(api16, params, seq, LM_PROMPT)
+            with RoutingTape(cfg.n_layers) as tape:
+                want16 = lm_teacher_forced(api16, params, seq, LM_PROMPT)
+            flips = sum(int((a.sort(-1).values != b.sort(-1).values)
+                            .any(-1).sum()) for a, b in zip(
+                served_tape.recorded(), tape.recorded()))
+            total = sum(int(t[..., 0].numel()) for t in tape.recorded())
+            log(f"    routing: {flips} of {total} token-layer decisions "
+                f"differ between the bf16 decode and the bf16 forward; (b) "
+                f"replays the forward's")
+            with RoutingTape(cfg.n_layers, tape.recorded()):
+                got16 = lm_decode_along(api16, params, seq, LM_PROMPT)
+            with RoutingTape(cfg.n_layers, tape.recorded()):
+                want32 = lm_teacher_forced(api32, params, seq, LM_PROMPT)
+            del res16
+        else:
+            got16 = torch.stack(res.logits, dim=1).float()
+            want16 = lm_teacher_forced(api16, params, seq, LM_PROMPT)
+            want32 = lm_teacher_forced(api32, params, seq, LM_PROMPT)
+        if not lm_check_bf16(got16, want16, want32):
+            failures.append(f"{arch} (b)")
+        del got16, want16, want32
+        if not moe_cfg:
+            profile_lm_decode(published, params, res)
+        del res, params
+        torch.cuda.empty_cache()
+
+    # -- the other families: one f32 serving pass each, (a) and (c) ------
+    rg = configs.get("recurrentgemma-9b")
+    log(f"  reduced: recurrentgemma-9b n_layers {rg.n_layers} -> "
+        f"{len(rg.hybrid_pattern)} (one {rg.hybrid_pattern} period), every "
+        f"width in full")
+    for arch, cfg in (
+            ("xlstm-125m", configs.get("xlstm-125m")),
+            ("whisper-base", configs.get("whisper-base")),
+            ("recurrentgemma-9b", dataclasses.replace(
+                rg, n_layers=len(rg.hybrid_pattern)))):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        api = build(cfg)
+        params = init(arch + " (f32, prompt fed token by token)", cfg)
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.randn((LM_BATCH, cfg.n_audio_frames, cfg.d_model),
+                                 generator=gen.manual_seed(SEED + 2),
+                                 device=dev)
+        prompts = prompts_for(cfg)
+        res, seq = lm_serve_pass("f32 serving", api, params, prompts, frames,
+                                 base)
+        lm_bound("f32", cfg, params, res)
+        got = torch.stack(res.logits, dim=1).float()
+        want = lm_teacher_forced(api, params, seq, LM_PROMPT, frames)
+        if cfg.family == "ssm":
+            err = float((got - want).abs().max())
+            log(f"    at the reference's init: decode vs forward max_abs_err"
+                f" {err:.4e} (max|logit| {float(want.abs().max()):.3f}): the"
+                f" sLSTM recurrence, r_zifo at std 1/sqrt(4), is chaotic at "
+                f"head dim {cfg.d_model // cfg.n_heads}; (a) runs with "
+                f"r_zifo at std 1/sqrt(head dim)")
+            dh = cfg.d_model // cfg.n_heads
+            for name, block in params["periods"].items():
+                if name.endswith("_s"):
+                    block["r_zifo"] = block["r_zifo"] * (4 / dh) ** 0.5
+            res, seq = lm_serve_pass("f32 serving, sLSTM rescaled", api,
+                                     params, prompts, base=base)
+            got = torch.stack(res.logits, dim=1).float()
+            want = lm_teacher_forced(api, params, seq, LM_PROMPT)
+        if not lm_check_f32("(a) f32 decode vs teacher-forced forward", got,
+                            want):
+            failures.append(f"{arch} (a)")
+        del res, params, got, want
+        torch.cuda.empty_cache()
+
+    launches = read_launches()
+    log(f"  dp_fused launches during phase 13: {launches} (none expected); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 13 checks failed: {failures}")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1613,6 +2030,7 @@ def main() -> int:
     by_path.update(dist_launches)
     by_path["train_check"] = phase_train(COPPER_DP, dev)
     _, by_path["dryrun"] = phase_dryrun(dev)
+    by_path["lm_serve"] = phase_lm_serve(dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches: the main path's (phase 3); each path's run beside it
     print(json.dumps({"kernels": [

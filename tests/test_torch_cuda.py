@@ -1,4 +1,6 @@
-"""The dp_fused CUDA kernels against their plain versions, on the card.
+"""The dp_fused CUDA kernels against their plain versions, on the card,
+and the port's other paths on the card (engines, bricks, training, the dry
+run, the LM zoo's serving).
 
 These tests need an NVIDIA GPU and skip without one. The file imports
 neither JAX nor the reference package, so it runs on a machine that has
@@ -540,3 +542,85 @@ def test_custom_op_counts_eager_captured_and_replayed_launches(dev):
     assert ops.fwd_launches - fw1 == 2
     assert torch.equal(g_out, out) and torch.equal(g_denv, denv)
     assert torch.equal(torch.nan_to_num(g_ds), torch.nan_to_num(ds))
+
+
+# ---------------------------------------------------------- LM zoo serving
+
+_LM_ARCHS = ["glm4_9b", "qwen2_72b", "qwen3_1p7b", "granite_3_8b",
+             "xlstm_125m", "granite_moe_1b_a400m", "qwen2_moe_a2p7b",
+             "llava_next_34b", "recurrentgemma_9b", "whisper_base"]
+
+
+def _lm_case(arch, dev):
+    """The REDUCED config in f32 (MoE routed drop-free: capacity_factor =
+    n_experts / top_k, so decode equals the teacher-forced forward), its
+    weights from seed 0 on the CPU and on the card, and inputs."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.train import tree
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(7)
+    kw = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    on_card = (tree.tree_map(lambda t: t.to(dev), params),
+               {k: v.to(dev) for k, v in kw.items()})
+    return api, (params, kw), on_card
+
+
+def _lm_close(got, want):
+    torch.testing.assert_close(
+        got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_forward_on_the_card_matches_the_cpu(dev, arch):
+    from repro_torch.device import resolve_device
+
+    resolve_device("cuda")          # TF32 off, as every entry point sets it
+    api, (params, kw), (params_g, kw_g) = _lm_case(arch, dev)
+    logits_c, aux_c = api.forward(params, **kw)
+    logits_g, aux_g = api.forward(params_g, **kw_g)
+    assert logits_g.device.type == "cuda"
+    _lm_close(logits_g.cpu(), logits_c)
+    _lm_close(aux_g.cpu(), aux_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_decode_on_the_card_matches_its_forward(dev, arch):
+    """prefill of 8 tokens + 4 decode steps (dense, MoE), or stateful
+    decode of all 12 tokens (recurrent families), on the card, against the
+    teacher-forced forward on the card."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import encdec
+    from repro_torch.train.steps import make_serve_step
+
+    resolve_device("cuda")
+    api, _, (params, kw) = _lm_case(arch, dev)
+    ref, _ = api.forward(params, **kw)
+    toks = kw["tokens"]
+    step = make_serve_step(api)
+    k0 = 8 if api.prefill is not None else 0
+    if api.prefill is not None:
+        logits, cache = api.prefill(params, toks[:, :k0], 16)
+        _lm_close(logits, ref[:, k0 - 1])
+    elif api.cfg.family == "encdec":
+        cache = encdec.init_cache(params, api.cfg, 2, 16, frames=kw["frames"])
+    else:
+        cache = api.init_cache(params, 2, 16)
+    for t in range(k0, toks.shape[1]):
+        logits, cache = step(params, toks[:, t:t + 1], cache)
+        _lm_close(logits, ref[:, t])
+    assert cache.length.device.type == "cuda"
+    assert int(cache.length) == toks.shape[1]

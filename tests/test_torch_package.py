@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import bridge
+from repro_torch import bridge, configs
 from repro_torch.core import dp_model
 from repro_torch.core.types import DPConfig
+from repro_torch.launch import serve_lm
 from repro_torch.md import api, cli, driver, lattice
+from repro_torch.models import build
 from repro_torch.train import cli as train_cli
 from repro_torch.train import dp_trainer
 
@@ -45,7 +47,7 @@ def test_port_imports_neither_jax_nor_reference():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 41 and bad == "[]", out.stdout
+    assert int(n) >= 65 and bad == "[]", out.stdout
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -80,6 +82,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         dp_trainer.teacher_data(TINY, params, n_configs=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--steps", "1"])
+    for arch in configs.all_archs():
+        lm = build(configs.get_reduced(arch))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init(gen)
+        lm_params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+        assert lm_params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.main(["--arch", "qwen3-1.7b"])
 
 
 def _run(spec, params=None, nx=2):
