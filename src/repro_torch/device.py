@@ -28,3 +28,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -1,1 +1,2 @@
-"""Launchers of the port: entry points that run across ranks."""
+"""Launchers of the port: distributed MD, the dry run, LM serving and LM
+training."""

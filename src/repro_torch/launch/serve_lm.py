@@ -26,7 +26,7 @@ from typing import Any, List, Optional
 import torch
 
 from repro_torch import configs
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import build, encdec
 from repro_torch.models.zoo import ModelAPI
 from repro_torch.train.steps import make_serve_step
@@ -45,11 +45,6 @@ class ServeResult:
         return self.decode_ms / max(1, self.tokens.shape[1] - 1)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def serve(api: ModelAPI, params: Any, prompts: torch.Tensor, steps: int,
           frames: Optional[torch.Tensor] = None,
           keep_logits: bool = False) -> ServeResult:
@@ -63,7 +58,7 @@ def serve(api: ModelAPI, params: Any, prompts: torch.Tensor, steps: int,
     step = make_serve_step(api)
     dev = prompts.device
     with torch.inference_mode():
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         if api.prefill is not None:
             logits, cache = api.prefill(params, prompts, max_len)
@@ -76,7 +71,7 @@ def serve(api: ModelAPI, params: Any, prompts: torch.Tensor, steps: int,
             for t in range(p_len):
                 logits, cache = step(params, prompts[:, t:t + 1], cache)
         tok = logits.argmax(-1, keepdim=True)
-        _sync(dev)
+        synchronize(dev)
         t1 = time.perf_counter()
         kept = [logits] if keep_logits else []
         out = [tok]
@@ -86,7 +81,7 @@ def serve(api: ModelAPI, params: Any, prompts: torch.Tensor, steps: int,
             out.append(tok)
             if keep_logits:
                 kept.append(logits)
-        _sync(dev)
+        synchronize(dev)
         t2 = time.perf_counter()
     return ServeResult(tokens=torch.cat(out, dim=1), logits=kept, cache=cache,
                        prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3)

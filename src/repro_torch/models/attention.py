@@ -98,15 +98,17 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_chunk: int = 512, k_chunk: int = 1024,
-                      window: int = 0,
-                      softcap_val: float = 0.0) -> torch.Tensor:
+                      window: int = 0, softcap_val: float = 0.0,
+                      remat: bool = True) -> torch.Tensor:
     """Online-softmax attention; scores never exceed (q_chunk, k_chunk).
 
     A loop over q chunks and, inside, kv chunks. Causal runs stop at the
     diagonal's kv chunk: the reference scans the chunks above it too, where
     every score is masked, and they change nothing (their probabilities are
-    exp(NEG_INF - m) = 0 and the running max stays). The reference's
-    ``remat`` (checkpointing for a backward pass) has no counterpart here.
+    exp(NEG_INF - m) = 0 and the running max stays). With ``remat`` and
+    grad mode on, each q chunk runs under activation checkpointing, as in
+    the reference: backward recomputes the chunk's probabilities instead of
+    keeping every (q_chunk, k_chunk) tile.
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -116,9 +118,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if nq * q_chunk != sq or nk * k_chunk != sk:
         raise ValueError("chunk must divide seq")
     dev = q.device
-    outs = []
-    for qi in range(nq):
-        q_tile = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+
+    def q_block(qi, q_tile, k, v):
         qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
         acc = torch.zeros((b, q_chunk, h, hd), dtype=torch.float32,
                           device=dev)
@@ -144,7 +145,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "bhqk,bkhd->bqhd", p.to(q.dtype), v_tile).float()
             m = m_new
         out = acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]
-        outs.append(out.to(q.dtype))
+        return out.to(q.dtype)
+
+    outs = [common.remat(remat, q_block, qi,
+                         q[:, qi * q_chunk:(qi + 1) * q_chunk], k, v)
+            for qi in range(nq)]
     return torch.cat(outs, dim=1).reshape(b, sq, h * hd)
 
 

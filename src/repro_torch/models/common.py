@@ -4,14 +4,18 @@ Parameters are nested dicts of tensors with the reference's keys. Master
 weights are float32; ``dense`` and the MLPs cast them to the activation
 dtype on every call (bf16 compute against f32 masters), as the reference
 does. Norms compute in float32 whatever the input dtype.
+
+``remat`` is the reference's ``jax.checkpoint`` of a layer (``cfg.remat``):
+the layer's activations are recomputed in backward instead of kept.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -148,3 +152,14 @@ def unstack_layers(tree: Any, n: int) -> list:
         parts = {k: unstack_layers(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
     return list(tree.unbind(0))
+
+
+def remat(enabled: bool, fn: Callable[..., Any], *args: Any) -> Any:
+    """``fn(*args)``, under activation checkpointing when ``enabled`` (a
+    model's ``cfg.remat``) and grad mode is on (never while serving under
+    ``inference_mode``): only ``args`` are kept for backward, which reruns
+    ``fn`` for the rest."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)

@@ -114,11 +114,15 @@ def encode(params: Dict[str, Any], cfg: LMConfig,
     dt = common.dtype_of(cfg.dtype)
     x = frames.to(dt) + sinusoids(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)
-    for lp in common.unstack_layers(params["enc"], cfg.n_enc_layers):
+
+    def body(lp, x):
         h = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
         x = x + _mha(lp["attn"], cfg, h, h, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        x = x + common.gelu_mlp(lp["mlp"], h)
+        return x + common.gelu_mlp(lp["mlp"], h)
+
+    for lp in common.unstack_layers(params["enc"], cfg.n_enc_layers):
+        x = common.remat(cfg.remat, body, lp, x)
     return common.layer_norm(params["ln_enc_post"], x, cfg.rms_eps)
 
 
@@ -136,13 +140,17 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     enc_out = encode(params, cfg, frames)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(dt) + params["pos_dec"][:s].to(dt)
-    for lp in common.unstack_layers(params["dec"], cfg.n_layers):
+
+    def body(lp, x, enc_out):
         h = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
         x = x + _mha(lp["self_attn"], cfg, h, h, causal=True)[0]
         h = common.layer_norm(lp["ln_x"], x, cfg.rms_eps)
         x = x + _mha(lp["cross_attn"], cfg, h, enc_out, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        x = x + common.gelu_mlp(lp["mlp"], h)
+        return x + common.gelu_mlp(lp["mlp"], h)
+
+    for lp in common.unstack_layers(params["dec"], cfg.n_layers):
+        x = common.remat(cfg.remat, body, lp, x, enc_out)
     x = common.layer_norm(params["ln_dec_post"], x, cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

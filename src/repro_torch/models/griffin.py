@@ -228,12 +228,19 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for group in _groups(params, cfg):
+
+    def group_apply(group, x):
         for name in _sorted_names(group):
             if name.endswith("_r"):
                 x, _ = recurrent_block(group[name], cfg, x)
             else:
                 x, _ = local_attn_block(group[name], cfg, x, positions)
+        return x
+
+    n_periods = _pattern_split(cfg)[0]
+    for i, group in enumerate(_groups(params, cfg)):
+        # the periods remat as the reference's scan body does; the tail not
+        x = common.remat(cfg.remat and i < n_periods, group_apply, group, x)
     x = common.rms_norm(params["final_norm"], x, cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

@@ -6,8 +6,10 @@ and the MoE variants granite-moe-1b-a400m / qwen2-moe-a2.7b.
 
 Parameters keep the reference's tree: ``blocks`` stacked over layers on a
 leading axis, f32 masters cast to ``cfg.dtype`` per call. The layers run
-as a Python loop over views of the stacked tree. ``cfg.remat`` has no
-meaning without a backward pass and is ignored.
+as a Python loop over views of the stacked tree (``unbind``, so backward
+stacks the layers' gradients once); with ``cfg.remat`` and grad mode on,
+each layer runs under activation checkpointing, as the reference's scan
+body runs under ``jax.checkpoint``.
 
 Decode keeps the cache length a 0-d tensor on the device and writes the
 new position in place, so a step makes no host sync: the returned cache
@@ -113,9 +115,13 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p_block in common.unstack_layers(params["blocks"], cfg.n_layers):
+
+    def body(p_block, x, aux):
         x, a = block_apply(cfg, p_block, x, positions)
-        aux = aux + a
+        return x, aux + a
+
+    for p_block in common.unstack_layers(params["blocks"], cfg.n_layers):
+        x, aux = common.remat(cfg.remat, body, p_block, x, aux)
     x = common.rms_norm(params["final_norm"], x, cfg.rms_eps)
     if return_hidden:
         return x, aux

@@ -10,7 +10,8 @@ and a sequence is padded to a chunk multiple with log_i = -1e30, which
 makes the padded steps' state update vanish exactly.
 
 Layer pattern: ``cfg.xlstm_pattern`` cycled over n_layers; the parameters
-are stacked over pattern periods (``periods``), as in the reference.
+are stacked over pattern periods (``periods``), as in the reference, and
+with ``cfg.remat`` each period runs under activation checkpointing.
 """
 
 from __future__ import annotations
@@ -94,7 +95,10 @@ def _mlstm_chunk(q, k, v, log_i, log_f, state):
     # Intra-chunk: D_ij = exp(g_j - b_j - mloc_i) for j<=i.
     expo = (log_i - b_cum)[..., None, :] - mloc[..., :, None]
     causal = torch.ones((l_, l_), dtype=torch.bool, device=q.device).tril()
-    dmat = torch.where(causal, torch.exp(expo), 0.0)
+    # masked before the exp: above the diagonal expo can overflow to inf
+    # (strongly negative forget gates), and exp's backward would give
+    # 0 x inf = NaN there; exp(NEG_INF) = 0 keeps the forward's values
+    dmat = torch.exp(torch.where(causal, expo, NEG_INF))
     sw = (q @ k.transpose(-1, -2)) * scale * dmat
     h_intra = sw @ v                                    # (B,H,L,dv)
     qn_intra = sw.sum(-1)                               # (B,H,L)
@@ -311,9 +315,14 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
             return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = common.dtype_of(cfg.dtype)
     x = (params["embed"][tokens] if embeds is None else embeds).to(dt)
-    for pp in common.unstack_layers(params["periods"], _n_periods(cfg)):
+
+    def period(pp, x):
         for name in _names(cfg):
             x, _ = _block(name)(pp[name], cfg, x)
+        return x
+
+    for pp in common.unstack_layers(params["periods"], _n_periods(cfg)):
+        x = common.remat(cfg.remat, period, pp, x)
     x = common.rms_norm(params["final_norm"], x, cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

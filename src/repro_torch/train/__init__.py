@@ -1,1 +1,2 @@
-"""Deep Potential training: AdamW, the energy+force loss, checkpoints."""
+"""Training: AdamW, the DP energy+force loss, the LM train and serve steps,
+checkpoints."""

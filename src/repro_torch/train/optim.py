@@ -84,6 +84,41 @@ class AdamW:
                            nu=tree.unflatten(params, v), count=count),
                 gnorm)
 
+    @torch.no_grad()
+    def update_(self, grads: Any, state: AdamWState, params: Any
+                ) -> Tuple[Any, AdamWState, torch.Tensor]:
+        """``update`` in place: the f32 params, both moments and the grads
+        are overwritten, one leaf at a time, so the step holds one leaf's
+        temporaries and no second copy of the state (the reference's
+        buffer donation). The caller gives up the old state and grads.
+        Every value is ``update``'s, bit for bit: the same operations in
+        the same order."""
+        flat_p = tree.leaves(params)
+        flat_g = tree.leaves(grads)
+        if any(p.dtype != torch.float32 for p in flat_p):
+            raise ValueError("update_ needs f32 params; use update")
+        gnorm = global_norm(flat_g)
+        scale = (torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
+                             max=1.0) if self.grad_clip > 0 else None)
+        count = state.count + 1
+        cf = count.float()
+        b1c = 1.0 - torch.pow(self.b1, cf)
+        b2c = 1.0 - torch.pow(self.b2, cf)
+        lr = self.lr(count)
+        for p, g, m, v in zip(flat_p, flat_g, tree.leaves(state.mu),
+                              tree.leaves(state.nu)):
+            g = g.float()
+            if scale is not None:
+                g.mul_(scale)
+            m.mul_(self.b1).add_(g * (1 - self.b1))
+            v.mul_(self.b2).add_((g * (1 - self.b2)) * g)
+            step = (m / b1c).div_(torch.sqrt(v / b2c).add_(self.eps))
+            if self.weight_decay > 0 and p.dim() >= 2:
+                step.add_(self.weight_decay * p)
+            p.sub_(step.mul_(lr))
+        return params, AdamWState(mu=state.mu, nu=state.nu,
+                                  count=count), gnorm
+
 
 def global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in FP32."""

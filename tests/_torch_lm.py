@@ -204,7 +204,7 @@ def routing_margins():
         probs = torch.softmax(x.float() @ p["router"], dim=-1)
         top = probs.sort(dim=-1, descending=True).values
         k = cfg.moe.top_k
-        seen.append((top[..., k - 1] - top[..., k]).numpy())
+        seen.append((top[..., k - 1] - top[..., k]).detach().numpy())
         return orig(p, cfg, x)
 
     moe.route = route

@@ -1,6 +1,6 @@
 """The dp_fused CUDA kernels against their plain versions, on the card,
 and the port's other paths on the card (engines, bricks, training, the dry
-run, the LM zoo's serving).
+run, the LM zoo's serving and training).
 
 These tests need an NVIDIA GPU and skip without one. The file imports
 neither JAX nor the reference package, so it runs on a machine that has
@@ -624,3 +624,48 @@ def test_lm_decode_on_the_card_matches_its_forward(dev, arch):
         _lm_close(logits, ref[:, t])
     assert cache.length.device.type == "cuda"
     assert int(cache.length) == toks.shape[1]
+
+
+# ---------------------------------------------------------- LM zoo training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_1p7b", "granite_moe_1b_a400m"])
+def test_lm_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One LM train step (f32, REDUCED, MoE drop-free) on the card against
+    the CPU from the same params and batch: loss rtol 1e-5, every leaf's
+    gradient within 1e-4 x max|g| of the leaf, grad_norm rtol 1e-4; and
+    the card's gradients with remat on against off at the same bound."""
+    import dataclasses
+
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    resolve_device("cuda")
+    api, (params, _), (params_g, _) = _lm_case(arch, dev)
+    batch = pipeline_for(api.cfg, 16, 2, seed=3).batch(0, "cpu")
+    batch_g = {k: v.to(dev) for k, v in batch.items()}
+    opt = optim.AdamW(lr=lambda s: 1e-3)
+    step = make_train_step(api, opt, loss_chunk=8)
+    loss_c, _, g_c = step.loss_and_grads(params, batch)
+    loss_g, _, g_g = step.loss_and_grads(params_g, batch_g)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for g, c in zip(tree.leaves(g_g), tree.leaves(g_c)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), c, rtol=0,
+                                   atol=1e-4 * float(c.abs().max()))
+    off = make_train_step(build(dataclasses.replace(api.cfg, remat=False)),
+                          opt, loss_chunk=8)
+    _, _, g_off = off.loss_and_grads(params_g, batch_g)
+    for a, b in zip(tree.leaves(g_g), tree.leaves(g_off)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    zero = lambda p: torch.zeros((), dtype=torch.int32, device=p.device)
+    _, m_c = step(TrainState(params, opt.init(params), zero(loss_c)), batch)
+    new_g, m_g = make_train_step(api, opt, loss_chunk=8, donate=True)(
+        TrainState(params_g, opt.init(params_g), zero(loss_g)), batch_g)
+    torch.testing.assert_close(m_g["grad_norm"].cpu(), m_c["grad_norm"],
+                               rtol=1e-4, atol=0)
+    assert new_g.step.device.type == "cuda" and int(new_g.step) == 1

@@ -1,0 +1,25 @@
+"""One LM train step of the port against the reference's:
+recurrentgemma-9b (hybrid) and whisper-base (encdec, with stub frames),
+REDUCED configs, f32 and bf16; remat on against off. The checks are
+``_torch_lm_train.check_train_step``'s."""
+
+import pytest
+import torch
+
+from _torch_lm import BF16, F32
+from _torch_lm_train import check_remat, check_train_step
+
+torch.set_num_threads(1)
+
+ARCHS = ["recurrentgemma-9b", "whisper-base"]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_reference(arch, dtype):
+    check_train_step(arch, dtype)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_changes_nothing(arch):
+    check_remat(arch)
