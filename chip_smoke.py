@@ -119,6 +119,23 @@ Phases; any failure exits non-zero before the result line:
      steps of 2 x 512: finite losses. (e) whisper-base checkpoint resume
      through ``train_loop``, bit for bit under deterministic algorithms.
      dp_fused launches (0) under path "lm_train".
+ 15. LM sharding (``repro_torch.sharding``): (a) ``train_loop`` of
+     qwen3-1.7b at full width, 4 of 28 layers, 2 x 512 tokens, on 4 ranks
+     of the one card (threads of torch's threaded process group, a 2 x 2
+     (data, model) grid: FSDP x TP) against one rank from the same seed:
+     6 bf16 steps within 5e-3, 3 f32 steps within 1e-4, the gathered init
+     bit for bit, every gradient in its parameter's placements, the step-3
+     checkpoint written on (2, 2) continued on (1, 4) within 2e-2. (b) the
+     LM dry run (``launch.dryrun``) on fake CUDA tensors over a fake
+     process group: qwen3-1.7b's train_4k, prefill_32k and decode_32k on
+     16 x 16 and 2 x 16 x 16, and glm4-9b, qwen2-72b, granite-3-8b and
+     llava-next-34b train_4k on 16 x 16, traced at 1 and 2 layers and
+     carried to full depth: peak, FLOPs, bytes, collective bytes by kind,
+     the roofline on the H100, trace seconds. (c) the qwen3 rows under 70%
+     of the card run for real at full depth (the fake group stands in for
+     the other ranks: the time is the rank's compute alone): real peak
+     over the estimate in [0.75, 1.25], ms against bound_time. dp_fused
+     launches (0) under path "lm_dist".
 
 Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
 ``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
@@ -2353,6 +2370,328 @@ def phase_lm_train(dev):
     return launches
 
 
+# ----------------------------------------------------------------- phase 15
+
+LD_ARCH = "qwen3-1.7b"
+LD_LAYERS = 4        # of 28 (depth cut; every width kept)
+LD_BATCH, LD_SEQ = 2, 512
+LD_STEPS = 6
+LD_F32_STEPS = 3
+LD_CHUNK = 256
+LD_TOL = {"bfloat16": 5e-3, "float32": 1e-4}   # a step's loss, 4 ranks vs 1
+LD_RESTART_TOL = 2e-2
+LD_DEPTH = 2         # dry-run traces at 2 and 3 layers, carried to full
+LD_CELLS = ([(LD_ARCH, s, m) for m in (False, True)
+             for s in ("train_4k", "prefill_32k", "decode_32k")]
+            + [(a, "train_4k", False) for a in
+               ("glm4-9b", "qwen2-72b", "granite-3-8b", "llava-next-34b")])
+
+
+def rank_threads(fn, world):
+    """``fn(rank)`` in ``world`` threads, each a rank of torch's threaded
+    process group (``torch.testing._internal.distributed.
+    multi_threaded_pg``): NCCL refuses two ranks on one card, and gloo's
+    all-gather of CUDA tensors under DTensor crashed on the H100 (a
+    SIGSEGV, where its all-reduce and reduce-scatter worked). Each thread
+    runs its backward itself (autograd's device thread would serialise the
+    ranks' backward passes, whose collectives wait on each other). Returns
+    the results by rank; raises the first rank's error, or if a rank
+    hangs."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+
+    store = dist.HashStore()
+    results, errors = {}, {}
+
+    def body(rank):
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                # the group lives in this thread's world, which the phase
+                # drops (torch 2.11 cannot destroy a threaded group)
+                dist.init_process_group("threaded", rank=rank,
+                                        world_size=world, store=store)
+                results[rank] = fn(rank)
+        except BaseException as e:       # handed to the caller, who raises
+            errors[rank] = e
+            traceback.print_exc()
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a rank thread did not finish")
+    if errors:
+        raise errors[min(errors)]
+    return [results[r] for r in range(world)]
+
+
+class ThreadedRanks:
+    """The threaded process group installed for the phase, and removed."""
+
+    def __enter__(self):
+        import threading
+
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        from torch.testing._internal.distributed import multi_threaded_pg
+
+        torch._C._distributed_c10d._set_thread_isolation_mode(True)
+        multi_threaded_pg._install_threaded_pg()
+        self.lock = getattr(ShardingPropagator, "_fake_mode_lock", None)
+        if self.lock is not None:
+            ShardingPropagator._fake_mode_lock = threading.Lock()
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        from torch.testing._internal.distributed import multi_threaded_pg
+
+        multi_threaded_pg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        if self.lock is not None:
+            ShardingPropagator._fake_mode_lock = self.lock
+
+
+def ld_losses(hist):
+    return np.asarray([h["loss"] for h in hist])
+
+
+def phase_lm_dist(dev):
+    """LM sharding over torch.distributed (``repro_torch.sharding``): (a)
+    qwen3-1.7b at full width cut to LD_LAYERS of 28 layers, 2 x 512 tokens,
+    trained by ``launch.train.train_loop`` on 4 ranks of the one card (a
+    2 x 2 (data, model) grid of threads, ``rank_threads``) against
+    ``train_loop`` on one rank from the same seed: each of LD_STEPS steps'
+    loss within LD_TOL (bf16 5e-3, the reference's FSDP check; f32 1e-4);
+    f32 runs LD_F32_STEPS steps; the gathered sharded init equal to the
+    single rank's bit for bit; every gradient in its parameter's
+    placements; the bf16 run's checkpoint at step 3 (written on (2, 2))
+    continued on (1, 4) within 2e-2 of (2, 2) going on. (b) the
+    LM dry run (``launch.dryrun.lower_cell``) of LD_CELLS on fake CUDA
+    tensors over a fake process group of the grid's size, traced at 2 and
+    3 layers and carried to full depth: per-rank peak, FLOPs, bytes,
+    collective bytes by kind, the roofline terms on ``roofline.h100()``
+    (each product type at its own peak), trace seconds. (c) ``launch.dryrun.run_cell``: rank 0's program at full
+    depth for real on the card for the qwen3 rows under DRYRUN_FIT of the
+    card, the fake group standing in for the other ranks (collectives move
+    nothing and take no time: the time is the rank's compute alone), real
+    max_memory_allocated over the estimate within DRYRUN_BAND; ms against
+    bound_time. dp_fused launches (0) under path "lm_dist"."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build
+    from repro_torch.models.lm_types import ASSIGNED_SHAPES
+    from repro_torch.sharding import ctx, plans
+    from repro_torch.sharding import state as sh_state
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_phase = time.perf_counter()
+    failures = []
+    base = torch.cuda.memory_allocated()
+    log(f"[15] LM sharding; {base / 2**30:.3f} GiB left allocated by earlier"
+        f" phases")
+
+    # -- (a) sharded training on the card -------------------------------
+    t_sub = time.perf_counter()
+    full = configs.get(LD_ARCH)
+    kw = dict(reduced=False, steps=LD_STEPS, global_batch=LD_BATCH,
+              seq_len=LD_SEQ, loss_chunk=LD_CHUNK, log_every=1, seed=SEED,
+              device=dev)
+    log(f"  (a) train_loop of {LD_ARCH} at full width (d {full.d_model}, "
+        f"vocab {full.vocab}, GQA {full.n_heads}/{full.n_kv_heads}), "
+        f"{LD_LAYERS} of {full.n_layers} layers, {LD_BATCH} x {LD_SEQ} "
+        f"tokens, {LD_STEPS} steps: 4 ranks as a 2 x 2 (data, model) grid "
+        f"of threads on the one card against one rank")
+    ckpt = Path(tempfile.mkdtemp(prefix="lm_dist_"))
+    with ThreadedRanks():
+        hist = {}
+        for dtype, steps in (("bfloat16", LD_STEPS), ("float32", LD_F32_STEPS)):
+            cfg = dataclasses.replace(full, n_layers=LD_LAYERS, dtype=dtype)
+            run = dict(kw, steps=steps)
+            t0 = time.perf_counter()
+            _, one = train_loop(cfg, **run, verbose=False)
+            t1 = time.perf_counter()
+            if dtype == "bfloat16":   # its step-3 checkpoint is restarted
+                run.update(ckpt_dir=str(ckpt / "a"), ckpt_every=3)
+            many = rank_threads(lambda r: train_loop(
+                cfg, **run, model_axis=2, verbose=False)[1], 4)
+            t2 = time.perf_counter()
+            a, b = ld_losses(one), ld_losses(many[0])
+            hist[dtype] = many[0]
+            err = float(np.abs(a - b).max())
+            same = all(np.array_equal(ld_losses(h), b) for h in many)
+            ok = (err <= LD_TOL[dtype] and same and np.isfinite(b).all())
+            log(f"    {dtype}, {steps} steps: one rank "
+                f"{a.round(5).tolist()}; 2 x 2 {b.round(5).tolist()}; max "
+                f"|d loss| {err:.3e} (limit {LD_TOL[dtype]:g}); ranks agree "
+                f"{same}; wall one rank {t1 - t0:.1f} s, 4 ranks "
+                f"{t2 - t1:.1f} s; ms/step from step 3: one rank "
+                f"{np.mean([h['ms'] for h in one[2:]]):.1f}, 2 x 2 "
+                f"{np.mean([h['ms'] for h in many[0][2:]]):.1f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(a) {dtype} losses")
+
+        cfg = dataclasses.replace(full, n_layers=LD_LAYERS)
+        api = build(cfg)
+
+        def init_and_grads(rank):
+            mesh = sh_state.device_mesh(sh_state.local_grid(2), dev)
+            plan = plans.make_plan(sh_state.grid(mesh), "train")
+            rules = ctx.ActivationRules(mesh=plan.mesh,
+                                        batch_axes=plan.batch_axes)
+            opt = optim.AdamW(lr=lambda s: 1e-4)
+            gen = torch.Generator(device=dev)
+            state = init_train_state(api, opt, gen.manual_seed(SEED), dev,
+                                     mesh=mesh)
+            single = api.init(gen.manual_seed(SEED), device=dev)
+            equal = all(torch.equal(sh_state.gather(x), y) for x, y in zip(
+                tree.leaves(state.params), tree.leaves(single)))
+            del single
+            pipe = pipeline_for(cfg, LD_SEQ, LD_BATCH, seed=SEED)
+            step = make_train_step(api, opt, loss_chunk=LD_CHUNK)
+            with ctx.activation_rules(rules):
+                _, _, grads = step.loss_and_grads(
+                    state.params, sh_state.distribute_batch(
+                        pipe.batch(0, dev), mesh, plan))
+            placed = [p for g, p, x in zip(tree.leaves(grads),
+                                           tree.flatten_with_paths(
+                                               state.params)[1],
+                                           tree.leaves(state.params))
+                      if tuple(g.placements) != tuple(x.placements)]
+            return equal, placed
+
+        t0 = time.perf_counter()
+        out = rank_threads(init_and_grads, 4)
+        equal = all(e for e, _ in out)
+        misplaced = sorted({p for _, ps in out for p in ps})
+        log(f"    gathered 2 x 2 init == single rank's, bit for bit: "
+            f"{equal}; gradients not in their params' placements: "
+            f"{misplaced} ({time.perf_counter() - t0:.1f} s)")
+        if not equal or misplaced:
+            failures.append("(a) init / placements")
+
+        # the bf16 run's step-3 checkpoint (written on (2, 2)) onto (1, 4)
+        t0 = time.perf_counter()
+        try:
+            shutil.copytree(ckpt / "a" / "step_00000003",
+                            ckpt / "b" / "step_00000003")
+            moved = rank_threads(lambda r: train_loop(
+                cfg, **kw, model_axis=4, verbose=False,
+                ckpt_dir=str(ckpt / "b"))[1], 4)[0]
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        a, b = ld_losses(hist["bfloat16"][3:]), ld_losses(moved)
+        err = float(np.abs(a - b).max())
+        ok = ([h["step"] for h in moved] == [4, 5, 6]
+              and err <= LD_RESTART_TOL)
+        log(f"    restart at step 3: (2, 2) goes on {a.round(5).tolist()}, "
+            f"restored onto (1, 4) {b.round(5).tolist()}; max |d loss| "
+            f"{err:.3e} (limit {LD_RESTART_TOL:g}) "
+            f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("(a) restart")
+    assert not dist.is_initialized()
+    log(f"    (a) {time.perf_counter() - t_sub:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the dry run on fake CUDA tensors ----------------------------
+    t_sub = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    hw = roofline.h100()
+    log(f"  (b) LM dry run of rank 0 on fake CUDA tensors, traced at "
+        f"{LD_DEPTH} and {LD_DEPTH + 1} layers and carried to full depth; "
+        f"roofline on {hw.name}: {roofline.peak_for(hw, 'bfloat16'):.3g} "
+        f"FLOP/s bf16, {hw.peak_flops:.3g} f32 (the data sheet's dense "
+        f"rates), {hw.hbm_bw:.3g} B/s HBM, {hw.ici_bw:.3g} B/s NVLink, "
+        f"{hw.dcn_bw:.3g} B/s between pods")
+    shapes = {s.name: s for s in ASSIGNED_SHAPES}
+    rows = {}
+    for arch, shape, multi in LD_CELLS:
+        grid = mesh_mod.make_production_mesh(multi_pod=multi)
+        row = dryrun.lower_cell(arch, shapes[shape], grid, multi,
+                                verbose=False, device="cuda", depth=LD_DEPTH)
+        rows[(arch, shape, multi)] = row
+        if row["status"] != "ok":
+            failures.append(f"(b) {row['cell']}")
+            log(f"    {row['cell']}: FAILED {row.get('error')}")
+            continue
+        log(f"    {row['cell']}: peak {row['mem_GiB']:.3f} GiB/rank (args "
+            f"{row['arg_bytes'] / 2**30:.3f}), FLOPs {row['flops/chip']:.4e},"
+            f" bytes {row['bytes/chip']:.4e}, collectives "
+            f"{ {k: f'{v:.4e}' for k, v in row['coll_by_kind'].items()} } "
+            f"({row['coll_count']}); FLOPs by type "
+            f"{ {k: f'{v:.4e}' for k, v in row['flops_by_dtype'].items()} }"
+            f"; t_compute "
+            f"{row['t_compute'] * 1e3:.3f} ms, t_memory "
+            f"{row['t_memory'] * 1e3:.3f} ms, t_collective "
+            f"{(row['t_ici'] + row['t_dcn']) * 1e3:.3f} ms -> "
+            f"{row['dominant']}, bound {row['bound_time'] * 1e3:.3f} ms; "
+            f"useful {row['useful_ratio']:.3f}; trace {row['trace_s']:.1f} s"
+            f" (layers {row['traced_layers']})")
+    log(f"    (b) {time.perf_counter() - t_sub:.1f} s")
+
+    # -- (c) real runs of rank 0's program -------------------------------
+    t_sub = time.perf_counter()
+    log(f"  (c) rank 0's program for real on the card at full depth, the "
+        f"other ranks a fake process group: collectives move no data, so "
+        f"the time is the rank's compute alone; rows under "
+        f"{DRYRUN_FIT:.0%} of {total / 2**30:.3f} GiB")
+    misses = []
+    for (arch, shape, multi), row in rows.items():
+        if arch != LD_ARCH or row["status"] != "ok":
+            continue
+        est = row["mem_GiB"] * 2**30
+        if est > DRYRUN_FIT * total:
+            log(f"    {row['cell']}: not run, estimate {est / 2**30:.3f} "
+                f"GiB")
+            continue
+        grid = mesh_mod.make_production_mesh(multi_pod=multi)
+        out = dryrun.run_cell(arch, shapes[shape], grid, device=dev)
+        ratio = out["peak_bytes"] / est
+        bound = row["bound_time"] * 1e3
+        log(f"    {row['cell']}: max_memory_allocated above the allocation "
+            f"before its arguments ({out['base_bytes']} B) "
+            f"{out['peak_bytes']} B = {out['peak_bytes'] / 2**30:.3f} GiB, "
+            f"estimate {est / 2**30:.3f} GiB, ratio {ratio:.4f} (band "
+            f"{DRYRUN_BAND}); {out['ms']:.1f} ms a step (first "
+            f"{out['ms_first']:.1f} ms) vs bound_time {bound:.3f} ms "
+            f"({bound / out['ms']:.2%} of it; compute alone)")
+        if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+            misses.append((row["cell"], ratio))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if misses:
+        failures.append(f"(c) real / estimate outside {DRYRUN_BAND}: "
+                        f"{misses}")
+    log(f"    (c) {time.perf_counter() - t_sub:.1f} s")
+    launches = read_launches()
+    log(f"  dp_fused launches during phase 15: {launches} (none expected); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 15 checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2387,6 +2726,7 @@ def main() -> int:
     _, by_path["dryrun"] = phase_dryrun(dev)
     by_path["lm_serve"] = phase_lm_serve(dev)
     by_path["lm_train"] = phase_lm_train(dev)
+    by_path["lm_dist"] = phase_lm_dist(dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches: the main path's (phase 3); each path's run beside it
     print(json.dumps({"kernels": [

@@ -2,6 +2,8 @@
 ``repro.analysis.roofline``.
 
     compute term    = FLOPs / peak FLOP/s                 [s, per card]
+                      (with FLOPs split by the products' input type, each
+                      type's at its own peak: :func:`peak_for`)
     memory term     = bytes / HBM bandwidth               [s, per card]
     collective term = collective wire bytes / link rate   [s, per card]
 
@@ -22,13 +24,14 @@ all-gather / reduce-scatter / all-to-all (N-1)/N, collective-permute 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class Hardware:
     name: str
-    peak_flops: float          # per card, for the dtype the step computes in
+    peak_flops: float          # per card: FP32 products on the H100 (the
+                               # MD port's type), bf16 on the TPU entry
     hbm_bw: float              # bytes/s per card
     ici_bw: float              # bytes/s per link inside a node / pod
     dcn_bw: float              # bytes/s per card across nodes / pods
@@ -41,13 +44,25 @@ HW_V5E = Hardware(name="tpu-v5e", peak_flops=197e12, hbm_bw=819e9,
                   ici_bw=50e9, dcn_bw=25e9, hbm_bytes=16 * 2**30)
 
 # NVIDIA H100 SXM5 80GB data sheet: FP32 (the port runs with TF32 off, so
-# every product is FP32) 67 TFLOP/s; HBM3 3.35 TB/s and 80 GB; NVLink 4 900
-# GB/s both directions, 450e9 per direction; one NDR InfiniBand NIC a card,
-# 400 Gb/s = 50e9 B/s. On a card, :func:`h100` replaces the data sheet's
-# 80 GB with what the card reports
+# every f32 product is FP32) 67 TFLOP/s; bf16 and fp16 989 TFLOP/s dense;
+# HBM3 3.35 TB/s and 80 GB; NVLink 4 900 GB/s both directions, 450e9 per
+# direction; one NDR InfiniBand NIC a card, 400 Gb/s = 50e9 B/s. On a card,
+# :func:`h100` replaces the data sheet's 80 GB with what the card reports
 # (``torch.cuda.get_device_properties(0).total_memory``).
 HW_H100 = Hardware(name="nvidia-h100-sxm", peak_flops=67e12, hbm_bw=3.35e12,
                    ici_bw=450e9, dcn_bw=50e9, hbm_bytes=80e9)
+
+# bf16 / fp16 dense peaks by hardware name where they differ from
+# ``peak_flops`` (the H100's tensor cores; the TPU entry's peak is bf16's)
+PEAK_FLOPS_16 = {HW_H100.name: 989e12}
+
+
+def peak_for(hw: Hardware, dtype: str) -> float:
+    """``hw``'s peak for products whose inputs are of ``dtype`` (a name:
+    "float32", "bfloat16", ...)."""
+    if dtype in ("bfloat16", "float16"):
+        return PEAK_FLOPS_16.get(hw.name, hw.peak_flops)
+    return hw.peak_flops
 
 
 def h100(device=None) -> Hardware:
@@ -158,13 +173,19 @@ def _wire_factor(op: str, n: int) -> float:
 
 def make_report(name: str, n_chips: int, flops: float, byts: float,
                 stats: CollectiveStats, model_flops: float,
-                peak_bytes: float, hw: Hardware = HW_H100) -> RooflineReport:
+                peak_bytes: float, hw: Hardware = HW_H100,
+                flops_by_dtype: Optional[Dict[str, float]] = None,
+                ) -> RooflineReport:
     """The report of one rank's traced work against ``hw`` (the port's
-    counterpart of the reference's ``analyze_compiled``)."""
+    counterpart of the reference's ``analyze_compiled``). The compute term
+    is ``flops`` at ``hw.peak_flops``, or, given ``flops_by_dtype`` (which
+    sums to ``flops``), each type's FLOPs at its own peak."""
+    t_compute = (flops / hw.peak_flops if flops_by_dtype is None else
+                 sum(f / peak_for(hw, d) for d, f in flops_by_dtype.items()))
     return RooflineReport(
         name=name, n_chips=n_chips, hlo_flops=flops, hlo_bytes=byts,
         collectives=stats, model_flops=model_flops,
-        t_compute=flops / hw.peak_flops, t_memory=byts / hw.hbm_bw,
+        t_compute=t_compute, t_memory=byts / hw.hbm_bw,
         t_ici=stats.wire_bytes_ici / hw.ici_bw,
         t_dcn=stats.wire_bytes_dcn / hw.dcn_bw,
         peak_mem_bytes=peak_bytes, hw=hw)

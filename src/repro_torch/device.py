@@ -25,8 +25,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu; "
+                         "meta for shapes only)")
     return dev
 
 

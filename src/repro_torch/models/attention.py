@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 NEG_INF = -1e30
 
@@ -44,15 +46,32 @@ def qkv_project(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
     """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, Hkv, hd); RoPE applied."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = common.dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = common.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = common.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    rules = ctx.current()
+
+    def heads(y, n):
+        # a projection whose n heads the model axis does not divide stays
+        # whole on it: its columns may divide (qwen3's 8 x 128 on 16 ranks)
+        # but would cut heads in half
+        if rules is not None and rules.axis_for("heads", n) is None:
+            y = constrain(y, "batch", None, None)
+        return y.reshape(b, s, n, hd)
+
+    q = heads(common.dense(p["wq"], x), cfg.n_heads)
+    k = heads(common.dense(p["wk"], x), cfg.n_kv_heads)
+    v = heads(common.dense(p["wv"], x), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = common.rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = common.rms_norm(p["k_norm"], k, cfg.rms_eps)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    # TP over heads when they divide the model axis; otherwise attention
+    # runs data-parallel over ALL mesh axes (batch_full): llava's 56 heads
+    if (rules is not None and s > 1
+            and rules.axis_for("heads", cfg.n_heads) is None):
+        roles = ("batch_full", None, None, None)
+    else:
+        roles = ("batch", None, "heads", None)
+    return tuple(constrain(t, *roles) for t in (q, k, v))
 
 
 def _expand_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
@@ -176,7 +195,47 @@ def write_position(cache: torch.Tensor, new: torch.Tensor,
     """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at position
     ``pos`` (a 0-d tensor on the device), in place and without a host
     sync: the counterpart of ``dynamic_update_slice_in_dim``."""
+    if ctx.is_dtensor(cache):
+        # DTensor's index_copy_ into a split sequence gathers the whole
+        # sequence of the cache on every rank
+        _write_position_sharded(cache, new, pos)
+        return
     cache.index_copy_(1, pos.reshape(1).long(), new.to(cache.dtype))
+
+
+def _write_position_sharded(cache, new, pos) -> None:
+    """``write_position`` into a DTensor cache whose sequence may be split
+    over ranks, on the local shards and still without a host sync: the
+    rank that holds ``pos`` writes ``new``, every other rank rewrites one
+    of its own positions with itself."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    off, n = ctx.local_range(cache, 1)
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cache.placements]
+    new_l = new.redistribute(cache.device_mesh, rows).to_local()
+    loc, p = cache.to_local(), pos.to_local() if ctx.is_dtensor(pos) else pos
+    i = (p - off).clamp(0, max(n - 1, 0)).reshape(1).long()
+    inside = (p >= off) & (p < off + n)
+    loc.index_copy_(1, i, torch.where(inside, new_l.to(loc.dtype),
+                                      loc.index_select(1, i)))
+
+
+def write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new`` (B, s, ...) into ``cache`` (B, S, ...) at positions
+    [0, s), in place. A DTensor cache is filled whole (s == S, the prompt
+    as long as the cache), shard by shard: ``new`` is laid out as it."""
+    s = new.shape[1]
+    if not ctx.is_dtensor(cache):
+        cache[:, :s] = new
+        return
+    # DTensor refuses a slice assignment into a split dim
+    if s != cache.shape[1] or tuple(new.placements) != tuple(
+            cache.placements):
+        raise ValueError("a sharded cache is filled whole, by values laid "
+                         f"out as it: {tuple(new.shape)} {new.placements} "
+                         f"into {tuple(cache.shape)} {cache.placements}")
+    cache.to_local().copy_(new.to_local())
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -192,11 +251,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, hd = q.shape
     s, n_kv = k_cache.shape[1], k_cache.shape[2]
     g = h // n_kv
+    # keep the cache sequence-split; q is grouped by kv head instead
+    k_cache = constrain(k_cache, "batch", "seq", None, None)
+    v_cache = constrain(v_cache, "batch", "seq", None, None)
+    # heads whole: the cache is split over the sequence, and DTensor cannot
+    # carry a split of both batch and heads through the batched product
+    q = constrain(q, "batch", None, None, None)
     qg = q.reshape(b, 1, n_kv, g, hd)
     logits = torch.einsum("bqngd,bsnd->bngqs", qg, k_cache).float() \
         * hd ** -0.5
+    logits = constrain(logits, "batch", None, None, None, "seq")
     logits = common.softcap(logits, softcap_val)
     kpos = torch.arange(s, device=q.device)
+    if ctx.is_dtensor(logits):      # DTensor refuses plain tensors beside it
+        kpos = ctx.along(logits, -1, kpos)
     valid = kpos < cache_len                                  # (S,)
     if window > 0:
         valid &= kpos >= cache_len - window
@@ -212,7 +280,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attention(q, k, v, *, causal: bool, window: int = 0,
               softcap_val: float = 0.0, chunked_threshold: int = 4096,
               q_chunk: int = 512, k_chunk: int = 1024):
-    """Dispatch: chunked online-softmax for long sequences, full otherwise."""
+    """Dispatch: chunked online-softmax for long sequences, full otherwise.
+    DTensors (sharded over batch and heads, never over the sequence) run
+    on each rank's shards: :func:`_on_shards`."""
+    kw = dict(causal=causal, window=window, softcap_val=softcap_val,
+              chunked_threshold=chunked_threshold, q_chunk=q_chunk,
+              k_chunk=k_chunk)
+    if ctx.is_dtensor(q):
+        # on DTensors, the masks and the online softmax's running sums
+        # would have to be DTensors too: replicated over the heads, or
+        # placed op by op
+        return _on_shards(q, k, v, **kw)
     if q.shape[1] >= chunked_threshold and q.shape[1] % q_chunk == 0 \
             and k.shape[1] % k_chunk == 0:
         return chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
@@ -220,3 +298,41 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
                                  softcap_val=softcap_val)
     return full_attention(q, k, v, causal=causal, window=window,
                           softcap_val=softcap_val)
+
+
+def _on_shards(q, k, v, **kw):
+    """``attention`` of DTensors, each rank on its own shards: attention is
+    independent across batch rows and heads, so a rank whose q holds some
+    rows and heads needs the k/v of those rows and of the kv heads its q
+    heads read, and nothing of the other ranks. The tiles, masks and
+    running sums are then plain tensors (no sharding propagation an op,
+    no replicated copies). k/v replicated over the model axis while q is
+    split over it (kv heads the axis does not divide) are cut to the
+    rank's kv heads; their gradient is then a partial sum over that axis.
+    The output (B, S, H*hd) keeps q's placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    if any(isinstance(p, Shard) and p.dim not in (0, 2)
+           for t in (q, k, v) for p in t.placements):
+        raise ValueError("sharded attention needs q/k/v split over batch "
+                         "and heads only, not "
+                         f"{q.placements}, {k.placements}, {v.placements}")
+    h, n_kv = q.shape[2], k.shape[2]
+    g = h // n_kv
+    h0, hq = ctx.local_range(q, 2)
+    k0, hk = ctx.local_range(k, 2)
+    need0, need1 = h0 // g, (h0 + hq - 1) // g + 1      # kv heads q reads
+    if not (k0 <= need0 and need1 <= k0 + hk and (
+            (hq % g == 0 and h0 % g == 0) or need1 - need0 == 1)):
+        raise ValueError(f"q heads [{h0}, {h0 + hq}) do not map onto whole "
+                         f"kv heads of [{k0}, {k0 + hk}) (group {g})")
+    kv_grad = [Partial() if isinstance(pk, Replicate)
+               and isinstance(pq, Shard) else pk
+               for pq, pk in zip(q.placements, k.placements)]
+    q_l = q.to_local()
+    k_l, v_l = (t.to_local(grad_placements=kv_grad)[:, :, need0 - k0:
+                                                    need1 - k0]
+                for t in (k, v))
+    out = attention(q_l, k_l, v_l, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)

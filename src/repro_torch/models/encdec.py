@@ -22,6 +22,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding.ctx import constrain
 
 
 def _ln_init(d: int, dtype, device) -> Dict[str, torch.Tensor]:
@@ -50,7 +51,8 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
+                device: DeviceLike = "cuda",
+                place: Optional[common.Place] = None) -> Dict[str, Any]:
     cfg.validate()
     dev = resolve_device(device)
     dt = common.dtype_of(cfg.param_dtype)
@@ -77,10 +79,12 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     return {
         "embed": tn(gen, (cfg.vocab, d), 1.0, dt, dev),
         "pos_dec": tn(gen, (1 << 16, d), 0.01, dt, dev),
-        "enc": common.stack_layers([enc_layer()
-                                    for _ in range(cfg.n_enc_layers)]),
-        "dec": common.stack_layers([dec_layer()
-                                    for _ in range(cfg.n_layers)]),
+        "enc": common.stack_layers((enc_layer()
+                                    for _ in range(cfg.n_enc_layers)),
+                                   "enc", place),
+        "dec": common.stack_layers((dec_layer()
+                                    for _ in range(cfg.n_layers)),
+                                   "dec", place),
         "ln_enc_post": _ln_init(d, dt, dev),
         "ln_dec_post": _ln_init(d, dt, dev),
     }
@@ -114,12 +118,14 @@ def encode(params: Dict[str, Any], cfg: LMConfig,
     dt = common.dtype_of(cfg.dtype)
     x = frames.to(dt) + sinusoids(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)
+    x = constrain(x, "batch", None, None)
 
     def body(lp, x):
         h = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
         x = x + _mha(lp["attn"], cfg, h, h, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        return x + common.gelu_mlp(lp["mlp"], h)
+        return constrain(x + common.gelu_mlp(lp["mlp"], h),
+                         "batch", None, None)
 
     for lp in common.unstack_layers(params["enc"], cfg.n_enc_layers):
         x = common.remat(cfg.remat, body, lp, x)
@@ -128,7 +134,8 @@ def encode(params: Dict[str, Any], cfg: LMConfig,
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     dt = common.dtype_of(cfg.dtype)
-    return lambda h: h @ params["embed"].T.to(dt)
+    return lambda h: constrain(h @ params["embed"].T.to(dt),
+                               "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -140,6 +147,7 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     enc_out = encode(params, cfg, frames)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(dt) + params["pos_dec"][:s].to(dt)
+    x = constrain(x, "batch", None, None)
 
     def body(lp, x, enc_out):
         h = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
@@ -147,7 +155,8 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
         h = common.layer_norm(lp["ln_x"], x, cfg.rms_eps)
         x = x + _mha(lp["cross_attn"], cfg, h, enc_out, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        return x + common.gelu_mlp(lp["mlp"], h)
+        return constrain(x + common.gelu_mlp(lp["mlp"], h),
+                         "batch", None, None)
 
     for lp in common.unstack_layers(params["dec"], cfg.n_layers):
         x = common.remat(cfg.remat, body, lp, x, enc_out)

@@ -25,6 +25,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding.ctx import constrain
 from repro_torch.models.xlstm import _causal_conv1d
 
 _RGLRU_C = 8.0
@@ -40,7 +41,8 @@ def init_recurrent_params(gen: torch.Generator, cfg: LMConfig, dtype,
     dh = dr // h
     tn = common.truncated_normal_init
     # Lambda init so a^(1/c) ~ U[0.9, 0.999] (paper init)
-    u = torch.empty((dr,), dtype=torch.float32, device=gen.device)
+    u = torch.empty((dr,), dtype=torch.float32,
+                    device=common.draw_device(gen, device))
     u.uniform_(0.9, 0.999, generator=gen)
     lam = torch.log(torch.expm1(-torch.log(u)))      # softplus^-1(-log u)
     return {
@@ -176,7 +178,8 @@ def _init_block(kind: str):
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
+                device: DeviceLike = "cuda",
+                place: Optional[common.Place] = None) -> Dict[str, Any]:
     cfg.validate()
     dev = resolve_device(device)
     dt = common.dtype_of(cfg.param_dtype)
@@ -189,8 +192,9 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     p = {
         "embed": common.truncated_normal_init(
             gen, (cfg.vocab, cfg.d_model), 1.0, dt, dev),
-        "periods": common.stack_layers([init_group(cfg.hybrid_pattern)
-                                        for _ in range(n_periods)]),
+        "periods": common.stack_layers(
+            (init_group(cfg.hybrid_pattern) for _ in range(n_periods)),
+            "periods", place),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
     if tail:
@@ -214,12 +218,14 @@ def _embed(params, cfg, tokens, embeds=None):
     dt = common.dtype_of(cfg.dtype)
     x = (params["embed"][tokens] if embeds is None else embeds).to(dt)
     # times sqrt(d) rounded to the compute dtype, as the reference scales
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    return constrain(x * torch.tensor(cfg.d_model ** 0.5, dtype=dt,
+                                      device=x.device), "batch", "seq", None)
 
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     dt = common.dtype_of(cfg.dtype)
-    return lambda h: common.softcap(h @ params["embed"].T.to(dt), 30.0)
+    return lambda h: constrain(common.softcap(h @ params["embed"].T.to(dt),
+                                              30.0), "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -235,6 +241,7 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
                 x, _ = recurrent_block(group[name], cfg, x)
             else:
                 x, _ = local_attn_block(group[name], cfg, x, positions)
+            x = constrain(x, "batch", "seq", None)
         return x
 
     n_periods = _pattern_split(cfg)[0]

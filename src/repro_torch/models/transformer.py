@@ -26,6 +26,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 
 def init_block_params(gen: torch.Generator, cfg: LMConfig,
@@ -44,15 +46,17 @@ def init_block_params(gen: torch.Generator, cfg: LMConfig,
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
+                device: DeviceLike = "cuda",
+                place: Optional[common.Place] = None) -> Dict[str, Any]:
     cfg.validate()
     dev = resolve_device(device)
     dt = common.dtype_of(cfg.param_dtype)
     tn = common.truncated_normal_init
     p = {
         "embed": tn(gen, (cfg.vocab, cfg.d_model), 1.0, dt, dev),
-        "blocks": common.stack_layers([init_block_params(gen, cfg, dev)
-                                       for _ in range(cfg.n_layers)]),
+        "blocks": common.stack_layers(
+            (init_block_params(gen, cfg, dev) for _ in range(cfg.n_layers)),
+            "blocks", place),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -64,8 +68,8 @@ def _ffn(cfg: LMConfig, p: Dict[str, Any],
          h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.family == "moe":
         return moe.moe_ffn(p["ffn"], cfg, h)
-    return common.swiglu(p["ffn"], h), torch.zeros(
-        (), dtype=torch.float32, device=h.device)
+    return common.swiglu(p["ffn"], h), ctx.like(h, torch.zeros(
+        (), dtype=torch.float32, device=h.device))
 
 
 def block_apply(cfg: LMConfig, p: Dict[str, Any], x: torch.Tensor,
@@ -77,26 +81,38 @@ def block_apply(cfg: LMConfig, p: Dict[str, Any], x: torch.Tensor,
 
 
 def _block_kv(cfg, p, x, positions):
-    """A block that also returns its (k, v): ((x, aux), (k, v))."""
-    h = common.rms_norm(p["attn_norm"], x, cfg.rms_eps)
+    """A block that also returns its (k, v): ((x, aux), (k, v)). Under
+    sequence-parallel rules the residual stream is split over the sequence;
+    each norm's output is gathered whole before the projections, and each
+    branch's output summed whole before it is split again: DTensor cannot
+    carry a (batch, seq) split through a matmul's flattening of (B, S),
+    forward or backward, as GSPMD does."""
+    h = constrain(common.rms_norm(p["attn_norm"], x, cfg.rms_eps),
+                  "batch", None, None)
     q, k, v = attn.qkv_project(p["attn"], cfg, h, positions)
     o = attn.attention(q, k, v, causal=True,
                        softcap_val=cfg.attn_logit_softcap)
-    x = x + common.dense(p["attn"]["wo"], o)
-    h = common.rms_norm(p["ffn_norm"], x, cfg.rms_eps)
+    o = constrain(common.dense(p["attn"]["wo"], o), "batch", None, None)
+    x = constrain(x + o, "batch", "seq", None)
+    h = constrain(common.rms_norm(p["ffn_norm"], x, cfg.rms_eps),
+                  "batch", None, None)
     f, aux = _ffn(cfg, p, h)
-    return (x + f, aux), (k, v)
+    f = constrain(f, "batch", None, None)
+    return (constrain(x + f, "batch", "seq", None), aux), (k, v)
 
 
 def _head(params: Dict[str, Any], cfg: LMConfig) -> torch.Tensor:
     head = params.get("lm_head")
-    w = params["embed"].T if head is None else head
+    if head is None:        # tied: the embedding table, gathered as looked up
+        w = common.whole_but(params["embed"], 0).T
+    else:
+        w = common.whole_but(head, 1)
     return w.to(common.dtype_of(cfg.dtype))
 
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     """(..., d) hidden -> (..., V) logits closure (tied or untied head)."""
-    return lambda h: h @ _head(params, cfg)
+    return lambda h: constrain(h @ _head(params, cfg), "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig,
@@ -111,10 +127,13 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     instead of logits.
     """
     dt = common.dtype_of(cfg.dtype)
-    x = (params["embed"][tokens] if embeds is None else embeds).to(dt)
+    x = (common.embed(params["embed"], tokens) if embeds is None
+         else embeds).to(dt)
+    x = constrain(x, "batch", "seq", None)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    positions = ctx.like(x, torch.arange(s, device=x.device).expand(b, s),
+                         "batch", None)
+    aux = ctx.like(x, torch.zeros((), dtype=torch.float32, device=x.device))
 
     def body(p_block, x, aux):
         x, a = block_apply(cfg, p_block, x, positions)
@@ -136,18 +155,27 @@ def prefill(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     """
     dt = common.dtype_of(cfg.dtype)
     b, s = tokens.shape
-    x = params["embed"][tokens].to(dt)
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = attn.init_kv_cache(cfg, cfg.n_layers, b, max_len, dt, x.device)
+    x = constrain(common.embed(params["embed"], tokens).to(dt),
+                  "batch", None, None)
+    positions = ctx.like(x, torch.arange(s, device=x.device).expand(b, s),
+                         "batch", None)
+    kv_roles = (None, "batch", "seq", None, None)
+    if ctx.is_dtensor(x):   # a plain cache would be whole on every rank
+        shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.hd)
+        cache = attn.KVCache(ctx.zeros(x, shape, dt, *kv_roles),
+                             ctx.zeros(x, shape, dt, *kv_roles), None)
+    else:
+        cache = attn.init_kv_cache(cfg, cfg.n_layers, b, max_len, dt,
+                                   x.device)
     blocks = common.unstack_layers(params["blocks"], cfg.n_layers)
     for i, p_block in enumerate(blocks):
         (x, _), (k, v) = _block_kv(cfg, p_block, x, positions)
-        cache.k[i, :, :s] = k
-        cache.v[i, :, :s] = v
+        attn.write_prefix(cache.k[i], constrain(k, *kv_roles[1:]))
+        attn.write_prefix(cache.v[i], constrain(v, *kv_roles[1:]))
     x = common.rms_norm(params["final_norm"], x[:, -1:], cfg.rms_eps)
     logits = (x @ _head(params, cfg))[:, 0]
-    return logits, cache._replace(
-        length=torch.tensor(s, dtype=torch.int32, device=x.device))
+    return logits, cache._replace(length=ctx.like(x, torch.tensor(
+        s, dtype=torch.int32, device=x.device)))
 
 
 def decode_step(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -156,7 +184,8 @@ def decode_step(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     the cache's k/v are written in place (see the module docstring)."""
     dt = common.dtype_of(cfg.dtype)
     b = tokens.shape[0]
-    x = params["embed"][tokens].to(dt)
+    x = constrain(common.embed(params["embed"], tokens).to(dt),
+                  "batch", None, None)
     pos = cache.length.expand(b, 1)
     n_valid = cache.length + 1
     blocks = common.unstack_layers(params["blocks"], cfg.n_layers)

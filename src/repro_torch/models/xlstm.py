@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding.ctx import constrain
 
 NEG_INF = -1e30
 
@@ -281,7 +282,8 @@ def _names(cfg: LMConfig) -> List[str]:
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
+                device: DeviceLike = "cuda",
+                place: Optional[common.Place] = None) -> Dict[str, Any]:
     cfg.validate()
     dev = resolve_device(device)
     dt = common.dtype_of(cfg.param_dtype)
@@ -294,8 +296,9 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     tn = common.truncated_normal_init
     return {
         "embed": tn(gen, (cfg.vocab, cfg.d_model), 1.0, dt, dev),
-        "periods": common.stack_layers([init_period()
-                                        for _ in range(_n_periods(cfg))]),
+        "periods": common.stack_layers(
+            (init_period() for _ in range(_n_periods(cfg))), "periods",
+            place),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "lm_head": tn(gen, (cfg.d_model, cfg.vocab), 1.0, dt, dev),
     }
@@ -307,7 +310,8 @@ def _block(name: str):
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     dt = common.dtype_of(cfg.dtype)
-    return lambda h: h @ params["lm_head"].to(dt)
+    return lambda h: constrain(h @ params["lm_head"].to(dt),
+                               "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -315,10 +319,12 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
             return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = common.dtype_of(cfg.dtype)
     x = (params["embed"][tokens] if embeds is None else embeds).to(dt)
+    x = constrain(x, "batch", None, None)
 
     def period(pp, x):
         for name in _names(cfg):
             x, _ = _block(name)(pp[name], cfg, x)
+            x = constrain(x, "batch", None, None)
         return x
 
     for pp in common.unstack_layers(params["periods"], _n_periods(cfg)):

@@ -3,7 +3,8 @@ ssm / hybrid / encdec models.
 
 ``build(cfg)`` returns a ``ModelAPI`` whose members close over the family
 module. ``init`` takes a ``torch.Generator`` and a device (the card unless
-``device="cpu"`` is asked for). ``init_cache`` signatures are normalized to
+``device="cpu"`` is asked for), and optionally ``place``, which lays out
+each stacked layer as it is drawn (``common.stack_layers``). ``init_cache`` signatures are normalized to
 (params, batch, max_len); families with O(1) state ignore max_len. The
 dense and MoE families also expose ``prefill`` (params, tokens, max_len).
 """
@@ -21,7 +22,7 @@ from repro_torch.models.lm_types import LMConfig
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: LMConfig
-    init: Callable[..., Any]            # (gen, device="cuda") -> params
+    init: Callable[..., Any]            # (gen, device="cuda", place=None)
     forward: Callable[..., Any]         # (params, **inputs) -> (logits, aux)
     decode_step: Callable[..., Any]     # (params, tokens, cache) -> (logits, cache)
     init_cache: Callable[..., Any]      # (params, batch, max_len) -> cache
@@ -41,8 +42,8 @@ def build(cfg: LMConfig) -> ModelAPI:
 
         return ModelAPI(
             cfg=cfg,
-            init=lambda gen, device="cuda": transformer.init_params(
-                gen, cfg, device),
+            init=lambda gen, device="cuda", place=None:
+                transformer.init_params(gen, cfg, device, place),
             forward=lambda params, **kw: transformer.forward(params, cfg,
                                                              **kw),
             decode_step=lambda params, tokens, cache: transformer.decode_step(
@@ -67,7 +68,8 @@ def build(cfg: LMConfig) -> ModelAPI:
             params, cfg, batch, max_len)
     return ModelAPI(
         cfg=cfg,
-        init=lambda gen, device="cuda": mod.init_params(gen, cfg, device),
+        init=lambda gen, device="cuda", place=None: mod.init_params(
+            gen, cfg, device, place),
         forward=lambda params, **kw: mod.forward(params, cfg, **kw),
         decode_step=lambda params, tokens, cache: mod.decode_step(
             params, cfg, tokens, cache),

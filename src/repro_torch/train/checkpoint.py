@@ -12,9 +12,17 @@
   * async: ``save_async`` copies every leaf to the host (the only
     synchronous part) and writes in a background thread.
   * retention: the newest ``keep`` checkpoints stay; GC is part of save.
+  * sharded trees: a DTensor leaf is gathered to its full tensor on the
+    calling thread (``_to_host``; the collectives cannot run in the writer
+    thread), so every rank calls ``save``/``save_async``; rank 0 writes,
+    and ``save`` and ``AsyncSave.wait`` end on a barrier, so every rank
+    then sees the files.
 
 ``restore`` places leaves on ``like``'s devices (or on ``device``), and
-checks the manifest's paths and shapes against ``like``'s.
+checks the manifest's paths and shapes against ``like``'s. With ``place``
+(``sharding.state.placer`` of a mesh and a plan) each leaf is laid out on
+the mesh as it is read, so at most one full leaf is in memory: a state
+written on one rank grid restores onto another.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +45,8 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     if not isinstance(leaf, torch.Tensor):
         a = np.array(leaf)
         return a, a.dtype.name
+    if hasattr(leaf, "full_tensor"):       # a DTensor: every rank gathers
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:       # numpy has no bfloat16
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -53,7 +63,14 @@ def _from_host(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _snapshot(ckpt_tree: Any):
+    """(arrays, dtype names, paths) on the writing rank. The other ranks
+    take part in gathering each DTensor leaf and keep nothing (None)."""
     leaves, paths = tree.flatten_with_paths(ckpt_tree)
+    if _ranks()[0] != 0:
+        for x in leaves:
+            if hasattr(x, "full_tensor"):
+                x.full_tensor()
+        return None
     host = [_to_host(x) for x in leaves]
     return [a for a, _ in host], [n for _, n in host], paths
 
@@ -75,9 +92,29 @@ def _write(ckpt_dir: str, step: int, arrays: List[np.ndarray],
     return final
 
 
+def _ranks() -> Tuple[int, bool]:
+    """(this rank, whether a process group is up)."""
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    return (dist.get_rank() if up else 0), up
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if _ranks()[1]:
+        dist.barrier()
+
+
 def save(ckpt_dir: str, step: int, ckpt_tree: Any, keep: int = 3) -> str:
     """Synchronous atomic save. Returns the final checkpoint path."""
-    return _write(ckpt_dir, step, *_snapshot(ckpt_tree), keep)
+    snap = _snapshot(ckpt_tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if snap is not None:
+        _write(ckpt_dir, step, *snap, keep)
+    _barrier()
+    return final
 
 
 class AsyncSave:
@@ -87,8 +124,10 @@ class AsyncSave:
         self.error: Optional[BaseException] = None
 
     def wait(self) -> str:
-        """Join the writer; re-raise what it raised."""
-        self._thread.join()
+        """Join the writer; re-raise what it raised. Every rank calls it."""
+        if self._thread is not None:
+            self._thread.join()
+        _barrier()
         if self.error is not None:
             raise self.error
         return self.path
@@ -106,8 +145,10 @@ def save_async(ckpt_dir: str, step: int, ckpt_tree: Any,
         except BaseException as exc:     # handed to wait(), which re-raises
             handle.error = exc
 
-    handle = AsyncSave(threading.Thread(target=run, daemon=True), final)
-    handle._thread.start()
+    handle = AsyncSave(threading.Thread(target=run, daemon=True)
+                       if snap is not None else None, final)
+    if snap is not None:
+        handle._thread.start()
     return handle
 
 
@@ -120,9 +161,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device: Optional[torch.device] = None) -> Tuple[Any, int]:
+            device: Optional[torch.device] = None,
+            place: Optional[Callable[[str, torch.Tensor], Any]] = None
+            ) -> Tuple[Any, int]:
     """Restore into the structure of ``like``. Each leaf goes to ``device``,
-    or else to the device of ``like``'s leaf (the CPU for a non-tensor)."""
+    or else to the device of ``like``'s leaf (the CPU for a non-tensor);
+    then, with ``place``, to ``place(path, leaf)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -144,7 +188,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
                                  f"{tuple(np.shape(leaf))}")
             dev = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-            out.append(t.to(dev))
+            t = t.to(dev)
+            out.append(t if place is None else place(paths[i], t))
     return tree.unflatten(like, out), step
 
 

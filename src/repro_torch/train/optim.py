@@ -7,6 +7,11 @@ the global norm before the moments (the norm before clipping is returned),
 the bias-corrected second moment, weight decay added to the step (scaled by
 ``lr``) for leaves with two or more dimensions only, and FP32 moments. The
 state is a tree like the parameters', so a checkpoint stores it leaf by leaf.
+
+Sharded params (DTensors) are updated on their local shards: the gradients
+and moments have the params' placements, so every element's arithmetic is
+the single device's, and only the global norm crosses ranks (a replicated
+0-d DTensor, returned as its plain local value).
 """
 
 from __future__ import annotations
@@ -17,7 +22,19 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding.state import local
 from repro_torch.train import tree
+
+
+def _rewrap(like: Any, t: torch.Tensor) -> Any:
+    """``t`` (a local shard) as a DTensor laid out as ``like``, when
+    ``like`` is one."""
+    if not hasattr(like, "device_mesh"):
+        return t
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
 
 
 class AdamWState(NamedTuple):
@@ -49,8 +66,8 @@ class AdamW:
         place, so the old state stays valid (a checkpoint may still hold
         it)."""
         flat_p = tree.leaves(params)
-        flat_g = tree.leaves(grads)
-        gnorm = global_norm(flat_g)
+        gnorm = local(global_norm(tree.leaves(grads)))
+        flat_g = [local(g) for g in tree.leaves(grads)]
         g32 = [g.float() for g in flat_g]
         if self.grad_clip > 0:
             scale = torch.clamp(
@@ -63,25 +80,28 @@ class AdamW:
         lr = self.lr(count)
 
         # m = b1 m + (1-b1) g;  v = b2 v + (1-b2) g g
-        m = torch._foreach_add(torch._foreach_mul(tree.leaves(state.mu), self.b1),
-                               torch._foreach_mul(g32, 1 - self.b1))
+        m = torch._foreach_add(
+            torch._foreach_mul([local(x) for x in tree.leaves(state.mu)],
+                               self.b1),
+            torch._foreach_mul(g32, 1 - self.b1))
         v = torch._foreach_add(
-            torch._foreach_mul(tree.leaves(state.nu), self.b2),
+            torch._foreach_mul([local(x) for x in tree.leaves(state.nu)],
+                               self.b2),
             torch._foreach_mul(torch._foreach_mul(g32, 1 - self.b2), g32))
         # step = (m / b1c) / (sqrt(v / b2c) + eps)
         den = torch._foreach_add(
             torch._foreach_sqrt(torch._foreach_div(v, b2c)), self.eps)
         step = list(torch._foreach_div(torch._foreach_div(m, b1c), den))
-        p32 = [p.float() for p in flat_p]
+        p32 = [local(p).float() for p in flat_p]
         if self.weight_decay > 0:
             for i, p in enumerate(p32):
                 if p.dim() >= 2:
                     step[i] = step[i] + self.weight_decay * p
         new_p = [(p - lr * s).to(old.dtype)
                  for p, s, old in zip(p32, step, flat_p)]
-        return (tree.unflatten(params, new_p),
-                AdamWState(mu=tree.unflatten(params, m),
-                           nu=tree.unflatten(params, v), count=count),
+        wrap = lambda xs: tree.unflatten(
+            params, [_rewrap(old, x) for old, x in zip(flat_p, xs)])
+        return (wrap(new_p), AdamWState(mu=wrap(m), nu=wrap(v), count=count),
                 gnorm)
 
     @torch.no_grad()
@@ -94,10 +114,9 @@ class AdamW:
         Every value is ``update``'s, bit for bit: the same operations in
         the same order."""
         flat_p = tree.leaves(params)
-        flat_g = tree.leaves(grads)
         if any(p.dtype != torch.float32 for p in flat_p):
             raise ValueError("update_ needs f32 params; use update")
-        gnorm = global_norm(flat_g)
+        gnorm = local(global_norm(tree.leaves(grads)))
         scale = (torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
                              max=1.0) if self.grad_clip > 0 else None)
         count = state.count + 1
@@ -105,8 +124,8 @@ class AdamW:
         b1c = 1.0 - torch.pow(self.b1, cf)
         b2c = 1.0 - torch.pow(self.b2, cf)
         lr = self.lr(count)
-        for p, g, m, v in zip(flat_p, flat_g, tree.leaves(state.mu),
-                              tree.leaves(state.nu)):
+        for p, g, m, v in zip(*(map(local, tree.leaves(t)) for t in
+                                (params, grads, state.mu, state.nu))):
             g = g.float()
             if scale is not None:
                 g.mul_(scale)
@@ -121,9 +140,16 @@ class AdamW:
 
 
 def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in FP32."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2)
+    """sqrt of the sum of squares of every leaf, in FP32 (of DTensor leaves:
+    a replicated 0-d DTensor)."""
+    norm = torch.sqrt(sum(torch.sum(x.float() ** 2)
                           for x in tree.leaves(grads)))
+    if hasattr(norm, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+
+        norm = norm.redistribute(norm.device_mesh,
+                                 [Replicate()] * norm.device_mesh.ndim)
+    return norm
 
 
 def cosine_schedule(peak: float, warmup: int, total: int,

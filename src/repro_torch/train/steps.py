@@ -7,6 +7,13 @@ cross-entropy plus ``aux_weight`` x the MoE load-balance loss, gradients
 of every leaf by ``torch.autograd.grad``, and the reference's AdamW. The
 reference jits the step with the state donated; ``donate=True`` is the
 counterpart: the update runs in place and the old state is consumed.
+
+The same step runs on a state of DTensors laid out by a plan
+(``sharding/state.py``) under the plan's activation rules: the hidden
+states are constrained before the loss, as in the reference; every
+gradient is redistributed to its parameter's placements (a partial sum
+over the data axis becomes FSDP's reduce-scatter), and the metrics come
+back as plain 0-d tensors, the same on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.losses import chunked_softmax_cross_entropy
 from repro_torch.models.zoo import ModelAPI
+from repro_torch.sharding import state as sh_state
+from repro_torch.sharding.ctx import constrain
 from repro_torch.train import tree
 from repro_torch.train.optim import AdamW, AdamWState
 
@@ -29,11 +38,24 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(api: ModelAPI, opt: AdamW, gen: torch.Generator,
-                     device: DeviceLike = "cuda") -> TrainState:
+                     device: DeviceLike = "cuda", mesh=None) -> TrainState:
     """Parameters from ``gen`` (drawn on the generator's device, then
-    moved to ``device``), zero moments, step 0."""
+    moved to ``device``), zero moments, step 0. With ``mesh`` (a
+    ``DeviceMesh``) the params are laid out by the train plan, each rank
+    cutting its shards from the same draws, so the gathered params equal
+    the single device's bit for bit: the stacked layers one layer at a time
+    as they are drawn, then each top-level leaf (embedding, head, final
+    norm). The moments follow the params' layout; count and step stay
+    plain (the same on every rank)."""
     dev = resolve_device(device)
-    params = api.init(gen, device=dev)
+    if mesh is None:
+        params = api.init(gen, device=dev)
+    else:
+        specs = sh_state.param_specs(
+            api.init(torch.Generator(), device="meta"), mesh)
+        params = api.init(gen, device=dev,      # the layers, as drawn
+                          place=sh_state.layer_placer(mesh, specs))
+        params = sh_state.distribute(params, mesh, specs)   # the rest
     return TrainState(params=params, opt=opt.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -64,6 +86,8 @@ class LMTrainStep:
             else:
                 kw["tokens"] = batch["tokens"]
             hidden, aux = api.forward(live, return_hidden=True, **kw)
+            # the loss runs sequence-unsharded on (B, S, d) hidden states
+            hidden = constrain(hidden, "batch", None, None)
             ce = chunked_softmax_cross_entropy(
                 hidden, api.logits_fn(live), batch["labels"],
                 batch.get("mask"), chunk=self.loss_chunk)
@@ -72,8 +96,9 @@ class LMTrainStep:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        return (loss.detach(), {"ce": ce.detach(), "moe_aux": aux.detach()},
-                tree.unflatten(params, grads))
+        full = lambda t: sh_state.gather(t.detach())
+        return (full(loss), {"ce": full(ce), "moe_aux": full(aux)},
+                sh_state.like_params(tree.unflatten(params, grads), params))
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

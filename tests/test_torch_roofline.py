@@ -85,6 +85,32 @@ def test_h100_entry_is_the_data_sheet():
     assert rl.h100().hbm_bytes == hw.hbm_bytes      # no card here
 
 
+def test_compute_term_takes_each_product_type_at_its_peak():
+    """bf16 and fp16 products at the H100's 989 TFLOP/s, f32 at 67; the
+    TPU entry's one peak for all; op_cost splits the FLOPs by the type of
+    the product's inputs."""
+    from repro_torch.analysis import op_cost
+
+    hw = rl.HW_H100
+    assert rl.peak_for(hw, "bfloat16") == rl.peak_for(hw, "float16") \
+        == 989e12
+    assert rl.peak_for(hw, "float32") == rl.peak_for(rl.h100(),
+                                                     "float32") == 67e12
+    assert rl.peak_for(rl.HW_V5E, "bfloat16") == rl.HW_V5E.peak_flops
+    r = rl.make_report("x", 1, 3e12, 0.0, rl.empty_stats(), 0.0, 0.0, hw,
+                       flops_by_dtype={"bfloat16": 2e12, "float32": 1e12})
+    assert r.t_compute == 2e12 / 989e12 + 1e12 / 67e12
+    assert rl.make_report("x", 1, 3e12, 0.0, rl.empty_stats(), 0.0, 0.0,
+                          hw).t_compute == 3e12 / 67e12
+    t = op_cost.analyze_fn(lambda a, b, c: (a @ b, c @ c),
+                           torch.ones(4, 8, dtype=torch.bfloat16),
+                           torch.ones(8, 2, dtype=torch.bfloat16),
+                           torch.ones(3, 3))
+    assert t.flops_by_dtype == {"bfloat16": 2 * 4 * 8 * 2,
+                                "float32": 2 * 3 * 3 * 3}
+    assert t.flops == sum(t.flops_by_dtype.values())
+
+
 _CFG = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(96,),
                 type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
                 fit_widths=(24, 24, 24), table_lower=-1.0, table_upper=9.0)
