@@ -129,13 +129,33 @@ Phases; any failure exits non-zero before the result line:
      LM dry run (``launch.dryrun``) on fake CUDA tensors over a fake
      process group: qwen3-1.7b's train_4k, prefill_32k and decode_32k on
      16 x 16 and 2 x 16 x 16, and glm4-9b, qwen2-72b, granite-3-8b and
-     llava-next-34b train_4k on 16 x 16, traced at 1 and 2 layers and
-     carried to full depth: peak, FLOPs, bytes, collective bytes by kind,
+     llava-next-34b train_4k on 16 x 16, traced at 2 and 3 layers and
+     carried to full depth, in 6 processes started after (a)'s timed
+     steps: peak, FLOPs, bytes, collective bytes by kind,
      the roofline on the H100, trace seconds. (c) the qwen3 rows under 70%
      of the card run for real at full depth (the fake group stands in for
      the other ranks: the time is the rank's compute alone): real peak
      over the estimate in [0.75, 1.25], ms against bound_time. dp_fused
      launches (0) under path "lm_dist".
+ 16. LM sharding of the MoE, ssm, hybrid and encdec families: (a)
+     ``train_loop`` of granite-moe-1b-a400m at full width (32 experts
+     top-8, expert-parallel over the model axis), 4 of 24 layers, 2 x 512
+     tokens, on 4 thread-ranks (2 x 2) against one rank: 3 f32 steps
+     within 1e-4, 6 bf16 steps within 5e-3 with the single rank's
+     routing replayed in the sharded run (bf16 router near-ties flip
+     between free runs; the flips are printed), the gathered init bit for
+     bit, every gradient in its parameter's placements, 16 experts a
+     rank, moe_aux > 0, a gradient on every expert; (b) xlstm-125m,
+     whisper-base and recurrentgemma-9b (8 of 12 and 3 of 38 layers),
+     f32, 2 steps of
+     2 x 512 within 1e-4 of one rank (xlstm's first-step gradient and its
+     second step held against a one-rank run in another summation
+     order), then sharded prefill + 4 decode steps within 1e-4 x
+     max|logit|; (c) the dry run of their 17 cells on 16 x 16 (fake CUDA
+     tensors, 2 + 3 units, 6 processes started after (a)'s timed steps);
+     (d) 5 of those rows for real (real
+     peak over estimate in [0.75, 1.25], ms against bound_time). dp_fused
+     launches (0) under path "lm_dist_families".
 
 Prints the kernels' JSON line (``launches`` of the main path, phase 3, and
 ``launches_by_path`` of every path), then ``{"ok": true, "device": {...}}``
@@ -2387,75 +2407,70 @@ LD_CELLS = ([(LD_ARCH, s, m) for m in (False, True)
                ("glm4-9b", "qwen2-72b", "granite-3-8b", "llava-next-34b")])
 
 
-def rank_threads(fn, world):
-    """``fn(rank)`` in ``world`` threads, each a rank of torch's threaded
-    process group (``torch.testing._internal.distributed.
-    multi_threaded_pg``): NCCL refuses two ranks on one card, and gloo's
-    all-gather of CUDA tensors under DTensor crashed on the H100 (a
-    SIGSEGV, where its all-reduce and reduce-scatter worked). Each thread
-    runs its backward itself (autograd's device thread would serialise the
-    ranks' backward passes, whose collectives wait on each other). Returns
-    the results by rank; raises the first rank's error, or if a rank
-    hangs."""
-    import threading
-    import traceback
-
-    import torch.distributed as dist
-
-    store = dist.HashStore()
-    results, errors = {}, {}
-
-    def body(rank):
-        try:
-            with torch.autograd.set_multithreading_enabled(False):
-                # the group lives in this thread's world, which the phase
-                # drops (torch 2.11 cannot destroy a threaded group)
-                dist.init_process_group("threaded", rank=rank,
-                                        world_size=world, store=store)
-                results[rank] = fn(rank)
-        except BaseException as e:       # handed to the caller, who raises
-            errors[rank] = e
-            traceback.print_exc()
-
-    threads = [threading.Thread(target=body, args=(r,), daemon=True)
-               for r in range(world)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    if any(t.is_alive() for t in threads):
-        raise AssertionError("a rank thread did not finish")
-    if errors:
-        raise errors[min(errors)]
-    return [results[r] for r in range(world)]
+TRACE_PROCS = 6      # dry-run traces in parallel processes (host cores)
 
 
-class ThreadedRanks:
-    """The threaded process group installed for the phase, and removed."""
+class Traces:
+    """The dry run of each (arch, shape name, multi_pod) cell, traced at
+    LD_DEPTH + 1 units and carried to full depth, each in a process of its
+    own (``python -m repro_torch.launch.dryrun``, fake CUDA tensors),
+    TRACE_PROCS at a time. ``start`` launches them while the phase goes on:
+    after its timed steps, which would share the host's cores with the
+    tracers otherwise. ``rows`` yields (cell, row, process wall seconds),
+    waiting for each; leaving the ``with`` block stops every process and
+    removes the rows' files."""
+
+    def __init__(self, cells):
+        self.cells, self.started, self.pool = cells, [], None
 
     def __enter__(self):
-        import threading
-
-        from torch.distributed.tensor._sharding_prop import \
-            ShardingPropagator
-        from torch.testing._internal.distributed import multi_threaded_pg
-
-        torch._C._distributed_c10d._set_thread_isolation_mode(True)
-        multi_threaded_pg._install_threaded_pg()
-        self.lock = getattr(ShardingPropagator, "_fake_mode_lock", None)
-        if self.lock is not None:
-            ShardingPropagator._fake_mode_lock = threading.Lock()
+        self.out_dir = Path(tempfile.mkdtemp(prefix="lm_dryrun_"))
         return self
 
-    def __exit__(self, *exc):
-        from torch.distributed.tensor._sharding_prop import \
-            ShardingPropagator
-        from torch.testing._internal.distributed import multi_threaded_pg
+    def start(self):
+        import concurrent.futures as cf
+        import os
 
-        multi_threaded_pg._uninstall_threaded_pg()
-        torch._C._distributed_c10d._set_thread_isolation_mode(False)
-        if self.lock is not None:
-            ShardingPropagator._fake_mode_lock = self.lock
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+
+        def one(cell):
+            arch, shape, multi = cell
+            mesh = "multipod" if multi else "pod"
+            out = self.out_dir / f"{arch}-{shape}-{mesh}.json"
+            t0 = time.perf_counter()
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--depth",
+                 str(LD_DEPTH), "--out", str(out)], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            self.started.append(p)
+            text, _ = p.communicate(timeout=1000)
+            if out.exists():
+                row = json.loads(out.read_text())[0]
+            else:
+                row = {"cell": f"{arch}/{shape}/{mesh}", "status": "failed",
+                       "error": f"exit {p.returncode}: {text[-2000:]}"}
+            return row, time.perf_counter() - t0
+
+        self.pool = cf.ThreadPoolExecutor(TRACE_PROCS)
+        self.futures = {cell: self.pool.submit(one, cell)
+                        for cell in self.cells}
+
+    def rows(self):
+        for cell, fut in self.futures.items():
+            yield (cell, *fut.result())
+
+    def __exit__(self, *exc):
+        import shutil
+
+        if self.pool is not None:
+            self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in self.started:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(self.out_dir, ignore_errors=True)
 
 
 def ld_losses(hist):
@@ -2473,9 +2488,10 @@ def phase_lm_dist(dev):
     single rank's bit for bit; every gradient in its parameter's
     placements; the bf16 run's checkpoint at step 3 (written on (2, 2))
     continued on (1, 4) within 2e-2 of (2, 2) going on. (b) the
-    LM dry run (``launch.dryrun.lower_cell``) of LD_CELLS on fake CUDA
-    tensors over a fake process group of the grid's size, traced at 2 and
-    3 layers and carried to full depth: per-rank peak, FLOPs, bytes,
+    LM dry run (``launch.dryrun``) of LD_CELLS on fake CUDA tensors over a
+    fake process group of the grid's size, traced at 2 and 3 layers and
+    carried to full depth, in processes started after (a)'s timed steps
+    and run beside the rest of (a) (``Traces``): per-rank peak, FLOPs, bytes,
     collective bytes by kind, the roofline terms on ``roofline.h100()``
     (each product type at its own peak), trace seconds. (c) ``launch.dryrun.run_cell``: rank 0's program at full
     depth for real on the card for the qwen3 rows under DRYRUN_FIT of the
@@ -2483,23 +2499,6 @@ def phase_lm_dist(dev):
     nothing and take no time: the time is the rank's compute alone), real
     max_memory_allocated over the estimate within DRYRUN_BAND; ms against
     bound_time. dp_fused launches (0) under path "lm_dist"."""
-    import dataclasses
-    import shutil
-
-    import torch.distributed as dist
-
-    from repro_torch import configs
-    from repro_torch.analysis import roofline
-    from repro_torch.data.tokens import pipeline_for
-    from repro_torch.launch import dryrun, mesh as mesh_mod
-    from repro_torch.launch.train import train_loop
-    from repro_torch.models import build
-    from repro_torch.models.lm_types import ASSIGNED_SHAPES
-    from repro_torch.sharding import ctx, plans
-    from repro_torch.sharding import state as sh_state
-    from repro_torch.train import optim, tree
-    from repro_torch.train.steps import init_train_state, make_train_step
-
     gc.collect()
     torch.cuda.empty_cache()
     reset_launches()
@@ -2508,6 +2507,35 @@ def phase_lm_dist(dev):
     base = torch.cuda.memory_allocated()
     log(f"[15] LM sharding; {base / 2**30:.3f} GiB left allocated by earlier"
         f" phases")
+    with Traces(LD_CELLS) as traces:
+        rows = ld_train_and_traces(dev, traces, failures)
+    ld_real_runs(dev, rows, failures)
+    launches = read_launches()
+    log(f"  dp_fused launches during phase 15: {launches} (none expected); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 15 checks failed: {failures}")
+    return launches
+
+
+def ld_train_and_traces(dev, traces, failures):
+    """Phase 15 (a), then (b) from the traces' futures; returns (b)'s rows
+    by cell."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build
+    from repro_torch.sharding import ctx, plans
+    from repro_torch.sharding import state as sh_state
+    from repro_torch.sharding.threads import ThreadedRanks, rank_threads
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import init_train_state, make_train_step
 
     # -- (a) sharded training on the card -------------------------------
     t_sub = time.perf_counter()
@@ -2549,6 +2577,7 @@ def phase_lm_dist(dev):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"(a) {dtype} losses")
+        traces.start()       # beside the untimed rest of (a)
 
         cfg = dataclasses.replace(full, n_layers=LD_LAYERS)
         api = build(cfg)
@@ -2616,21 +2645,18 @@ def phase_lm_dist(dev):
 
     # -- (b) the dry run on fake CUDA tensors ----------------------------
     t_sub = time.perf_counter()
-    total = torch.cuda.get_device_properties(0).total_memory
     hw = roofline.h100()
     log(f"  (b) LM dry run of rank 0 on fake CUDA tensors, traced at "
-        f"{LD_DEPTH} and {LD_DEPTH + 1} layers and carried to full depth; "
-        f"roofline on {hw.name}: {roofline.peak_for(hw, 'bfloat16'):.3g} "
-        f"FLOP/s bf16, {hw.peak_flops:.3g} f32 (the data sheet's dense "
-        f"rates), {hw.hbm_bw:.3g} B/s HBM, {hw.ici_bw:.3g} B/s NVLink, "
+        f"{LD_DEPTH} and {LD_DEPTH + 1} layers and carried to full depth, "
+        f"{TRACE_PROCS} processes started after (a)'s timed steps; "
+        f"roofline on {hw.name}: "
+        f"{roofline.peak_for(hw, 'bfloat16'):.3g} FLOP/s bf16, "
+        f"{hw.peak_flops:.3g} f32 (the data sheet's dense rates), "
+        f"{hw.hbm_bw:.3g} B/s HBM, {hw.ici_bw:.3g} B/s NVLink, "
         f"{hw.dcn_bw:.3g} B/s between pods")
-    shapes = {s.name: s for s in ASSIGNED_SHAPES}
     rows = {}
-    for arch, shape, multi in LD_CELLS:
-        grid = mesh_mod.make_production_mesh(multi_pod=multi)
-        row = dryrun.lower_cell(arch, shapes[shape], grid, multi,
-                                verbose=False, device="cuda", depth=LD_DEPTH)
-        rows[(arch, shape, multi)] = row
+    for cell, row, wall in traces.rows():
+        rows[cell] = row
         if row["status"] != "ok":
             failures.append(f"(b) {row['cell']}")
             log(f"    {row['cell']}: FAILED {row.get('error')}")
@@ -2647,8 +2673,18 @@ def phase_lm_dist(dev):
             f"{(row['t_ici'] + row['t_dcn']) * 1e3:.3f} ms -> "
             f"{row['dominant']}, bound {row['bound_time'] * 1e3:.3f} ms; "
             f"useful {row['useful_ratio']:.3f}; trace {row['trace_s']:.1f} s"
-            f" (layers {row['traced_layers']})")
-    log(f"    (b) {time.perf_counter() - t_sub:.1f} s")
+            f" (layers {row['traced_layers']}; process {wall:.1f} s)")
+    log(f"    (b) waited {time.perf_counter() - t_sub:.1f} s after (a)")
+    return rows
+
+
+def ld_real_runs(dev, rows, failures):
+    """Phase 15 (c): the qwen3 rows of (b) for real."""
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.models.lm_types import ASSIGNED_SHAPES
+
+    shapes = {s.name: s for s in ASSIGNED_SHAPES}
+    total = torch.cuda.get_device_properties(0).total_memory
 
     # -- (c) real runs of rank 0's program -------------------------------
     t_sub = time.perf_counter()
@@ -2684,12 +2720,624 @@ def phase_lm_dist(dev):
         failures.append(f"(c) real / estimate outside {DRYRUN_BAND}: "
                         f"{misses}")
     log(f"    (c) {time.perf_counter() - t_sub:.1f} s")
+
+
+# ----------------------------------------------------------------- phase 16
+
+LF_ARCH = "granite-moe-1b-a400m"
+LF_LAYERS = 4        # of 24 (depth cut; every width kept)
+LF_STEPS, LF_F32_STEPS = 6, 3
+LF_TOL = LD_TOL      # a step's loss, 4 ranks vs 1 (bf16 5e-3, f32 1e-4)
+# (arch, layers kept or None for all): f32, 2 steps of LD_BATCH x LD_SEQ;
+# xlstm-125m cut to 2 of its 3 "mmms" periods for the script's time (its
+# sLSTM layers loop a token at a time on each rank's thread)
+LF_OTHERS = (("xlstm-125m", 8), ("whisper-base", None),
+             ("recurrentgemma-9b", 3))
+LF_OTHER_STEPS = 2
+LF_DECODE = 4        # decode steps after the sharded prefill
+LF_SERVE_TOL = 1e-4  # logits, 4 ranks vs 1: of the largest |logit|
+# xlstm-125m: the prefill's last logits after 512 positions held at phase
+# 13's f32 bound for this model (1e-3 x max|logit|: its recurrences carry
+# the rounding of a reordered sum along the sequence; 3.0e-4 read at 12
+# layers). Its second step's loss read 4.8e-3 off at 12 layers (whisper's and
+# recurrentgemma's gradients agreed bit for bit): AdamW's first update is
+# lr x sign(g) per entry, so an entry of g at the level of rounding flips
+# its update. So its first step is held by what rounding alone does: a
+# one-rank run whose gradient sums the batch's rows in another order
+# (``lf_first_step_diff``). Every gradient leaf within LF_GRAD_TOL of its
+# largest entry or LF_ORDER_X times that run's difference; every entry
+# that the sharded step moved by more than lr / 2 one that rounding can
+# move; the second step's loss within 1e-4 or LF_ORDER_X times that
+# run's difference. A missing or doubled partial sum is off by 0.5 of a
+# leaf's largest entry.
+LF_SSM_PREFILL_TOL = 1e-3
+LF_GRAD_TOL = 1e-4   # the gloo test's xLSTM bound (RECURRENT_TOL)
+LF_ORDER_X = 10
+LF_CELLS = tuple((a, s, False)
+                 for a in ("granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                           "xlstm-125m", "recurrentgemma-9b", "whisper-base")
+                 for s in ("prefill_32k", "train_4k", "decode_32k",
+                           "long_500k")
+                 if s != "long_500k" or a in ("xlstm-125m",
+                                              "recurrentgemma-9b"))
+# (d): the rows run for real (each under DRYRUN_FIT of the card), 5 of
+# the 9 that fit, for the script's time
+LF_REAL = (("granite-moe-1b-a400m", "train_4k"),
+           ("granite-moe-1b-a400m", "decode_32k"),
+           ("xlstm-125m", "decode_32k"), ("recurrentgemma-9b", "long_500k"),
+           ("whisper-base", "train_4k"))
+
+
+class LfRoutes:
+    """Each routing call's expert ids, by caller: "one" for a single rank
+    (``moe.route`` with the parameter's router), the rank for a
+    thread-rank (its batch rows, with its local router). With ``replay``
+    (the "one" calls of a recording), a thread-rank's call routes its rows
+    to the experts recorded there, with gates and the aux loss from its
+    own router probabilities (``moe.route``'s, on the recorded ids), and
+    records the experts its own router would have picked. A rank's rows
+    are its data coordinate's (rank = data x ``model`` + model
+    coordinate)."""
+
+    def __init__(self, replay=None, model=2):
+        self.replay, self.model = replay, model
+
+    def __enter__(self):
+        import torch.distributed as dist
+        import torch.nn.functional as F
+
+        from repro_torch.models import moe
+
+        self.calls, self.orig = {}, moe.route
+
+        def route(p, cfg, x, router=None, total=lambda t: t, n=None):
+            key = "one" if router is None else dist.get_rank()
+            mine = self.calls.setdefault(key, [])
+            if self.replay is None or key == "one":
+                out = self.orig(p, cfg, x, router, total, n)
+                mine.append(out[1].detach().cpu())
+                return out
+            m = cfg.moe
+            probs = torch.softmax(x.float() @ router, dim=-1)
+            mine.append(torch.topk(probs, m.top_k, dim=-1)[1].cpu())
+            row0 = key // self.model * x.shape[0]
+            ids = self.replay[len(mine) - 1][row0:row0 + x.shape[0]].to(
+                x.device)
+            gates = probs.gather(-1, ids)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            one_hot = F.one_hot(ids, m.n_experts).float().sum(-2)
+            frac = total(one_hot.sum((0, 1))) / n / m.top_k
+            aux = m.n_experts * torch.sum(
+                frac * (total(probs.sum((0, 1))) / n))
+            return gates, ids, aux
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.orig
+
+    def flips(self, per_step, one=None):
+        """Token decisions (a token's k experts in a layer's routing call)
+        that differ between ``one`` (the single rank's calls, by default
+        this recording's) and the ranks of model coordinate 0, summed per
+        step of ``per_step`` calls."""
+        one = self.calls.get("one", []) if one is None else one
+        out = []
+        for s in range(len(one) // per_step):
+            n = 0
+            for i in range(s * per_step, (s + 1) * per_step):
+                for row in range(one[i].shape[0]):
+                    mine = self.calls[row * self.model][i][0]
+                    n += int((one[i][row].sort(-1).values
+                              != mine.sort(-1).values).any(-1).sum())
+            out.append(n)
+        return out
+
+
+def lf_other(arch, layers, dev, threaded_ranks):
+    """(b) for one family: f32, LF_OTHER_STEPS steps of LD_BATCH x LD_SEQ
+    on one rank and on 4 thread-ranks (2 x 2), then prefill (the forward's
+    last logits) and LF_DECODE decode steps on both. Returns a dict of
+    the losses and the serve errors."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build, encdec
+    from repro_torch.sharding import ctx, plans
+    from repro_torch.sharding import state as sh_state
+    from repro_torch.sharding.threads import rank_threads
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import (TrainState, init_train_state,
+                                         make_train_step)
+
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = build(cfg)
+    opt = optim.AdamW(lr=lambda s: 1e-4)
+    pipe = pipeline_for(cfg, LD_SEQ, LD_BATCH, seed=SEED)
+    prompt = pipe.batch(LF_OTHER_STEPS, dev)
+    nxt = torch.randint(0, cfg.vocab, (LF_DECODE, LD_BATCH, 1),
+                        generator=torch.Generator().manual_seed(SEED)).to(dev)
+    max_len = LD_SEQ + LF_DECODE
+
+    def rescaled(params):
+        # the reference's sLSTM init is chaotic at head dim 192 (phase 13):
+        # r_zifo at std 1/sqrt(head dim), in place, on either layout
+        if cfg.family == "ssm":
+            dh = cfg.d_model // cfg.n_heads
+            for name, block in params["periods"].items():
+                if name.endswith("_s"):
+                    block["r_zifo"].mul_((4 / dh) ** 0.5)
+        return params
+
+    def serve(params, rows, rules):
+        kw = {"tokens": rows(prompt["tokens"])}
+        if "frames" in prompt:
+            kw["frames"] = rows(prompt["frames"])
+        with torch.no_grad():
+            with ctx.activation_rules(rules[0]):
+                logits = [api.forward(params, **kw)[0][:, -1]]
+            with ctx.activation_rules(rules[1]):
+                if cfg.family == "encdec":
+                    cache = encdec.init_cache(params, cfg, LD_BATCH, max_len,
+                                              kw["frames"])
+                else:
+                    cache = rules[2](api.init_cache(params, LD_BATCH,
+                                                    max_len))
+                for t in nxt:
+                    out, cache = api.decode_step(params, rows(t), cache)
+                    logits.append(out)
+        return [sh_state.gather(x) for x in logits]
+
+    witness = cfg.family == "ssm"
+
+    def first_step(step, state, b, by_row, keep):
+        """``step(state, b)`` written out, its gradient taken a batch row
+        at a time and averaged when ``by_row`` (the same mean loss, the
+        batch's sum in another order): (state, metrics, (every gradient
+        leaf, every param after the step), gathered, or None unless
+        ``keep``)."""
+        if by_row:
+            parts = [step.loss_and_grads(state.params, {
+                k: v[i:i + 1] for k, v in b.items()}) for i in range(LD_BATCH)]
+            loss = sum(x[0] for x in parts) / LD_BATCH
+            grads = tree.unflatten(state.params, [
+                sum(g) / LD_BATCH for g in zip(*(tree.leaves(x[2])
+                                                 for x in parts))])
+        else:
+            loss, _, grads = step.loss_and_grads(state.params, b)
+        g1 = [sh_state.gather(g).clone() for g in tree.leaves(grads)]
+        params, moments, gnorm = opt.update_(grads, state.opt, state.params)
+        p1 = [sh_state.gather(x).clone() for x in tree.leaves(params)]
+        return (TrainState(params=params, opt=moments, step=state.step + 1),
+                {"loss": loss, "grad_norm": gnorm},
+                (g1, p1) if keep else None)
+
+    def run(mesh=None, by_row=False, keep=True):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = init_train_state(api, opt, gen, dev, mesh=mesh)
+        rescaled(state.params)
+        step = make_train_step(api, opt, loss_chunk=LD_CHUNK, donate=True)
+        ident = lambda t: t
+        rows, rules = ident, (None, None, ident)
+        if mesh is not None:
+            plan = plans.make_plan(sh_state.grid(mesh), "train")
+            train_rules = ctx.ActivationRules(mesh=plan.mesh,
+                                              batch_axes=plan.batch_axes)
+        losses, first = [], None
+        with (ctx.activation_rules(train_rules) if mesh is not None
+              else contextlib.nullcontext()):
+            for it in range(LF_OTHER_STEPS):
+                b = pipe.batch(it, dev)
+                if mesh is not None:
+                    b = sh_state.distribute_batch(b, mesh, plan)
+                if it == 0 and witness:
+                    state, m, first = first_step(step, state, b, by_row, keep)
+                else:
+                    state, m = step(state, b)
+                losses.append((float(m["loss"]), float(m["grad_norm"])))
+        del state
+        if by_row:
+            return losses, None, first
+        gen.manual_seed(SEED)
+        if mesh is None:
+            params = rescaled(api.init(gen, device=dev))
+        else:
+            splan = plans.make_plan(sh_state.grid(mesh), "serve")
+            specs = plans.param_shardings(splan, api.init(
+                torch.Generator(), device="meta"))
+            params = api.init(gen, device=dev,
+                              place=sh_state.layer_placer(mesh, specs))
+            params = rescaled(sh_state.distribute(params, mesh, specs))
+            base = ctx.ActivationRules(mesh=splan.mesh,
+                                       batch_axes=splan.batch_axes)
+            rules = (base, dataclasses.replace(base, shard_seq=True),
+                     lambda c: tree.unflatten(c, [
+                         sh_state.place(x, mesh, s) for x, s in zip(
+                             tree.leaves(c), dryrun.cache_shardings(
+                                 splan, cfg, c, LD_BATCH, max_len))]))
+            rows = lambda t: sh_state.place(t, mesh, plans.batch_spec(
+                splan, t.shape[0], t.dim() - 1))
+        return losses, serve(params, rows, rules), first
+
+    t0 = time.perf_counter()
+    one = run()
+    t1 = time.perf_counter()
+    with threaded_ranks():
+        many = rank_threads(lambda r: run(sh_state.device_mesh(
+            sh_state.local_grid(2), dev), keep=r == 0), 4)[0]
+    t2 = time.perf_counter()
+    scale = max(float(x.abs().max()) for x in one[1])
+    errs = [float((a - b).abs().max()) for a, b in zip(many[1], one[1])]
+    out = {"cfg": cfg, "one": one[0], "many": many[0], "scale": scale,
+           "errs": errs, "s_one": t1 - t0, "s_many": t2 - t1}
+    if witness:
+        order = run(by_row=True)
+        out["order"] = order[0]
+        out["witness"] = {k: lf_first_step_diff(one[2], x[2], opt.lr(1))
+                          for k, x in (("many", many), ("order", order))}
+    return out
+
+
+def lf_witness(arch, a, r, lims):
+    """(b)'s hold of xlstm-125m's steps (LF_SSM_PREFILL_TOL's comment):
+    prints the first step's gradient and update against one rank, for the
+    2 x 2 run and for the one-rank run in another order; returns (each
+    step's loss limit, whether the first step's checks held)."""
+    order = np.asarray(r["order"]).T[0]
+    d_order = np.abs(a - order)
+    lims = [lims[0]] + [max(lim, LF_ORDER_X * d)
+                        for lim, d in zip(lims[1:], d_order[1:])]
+    w = {k: np.asarray(v) for k, v in r["witness"].items()}
+    bound = np.maximum(LF_GRAD_TOL, LF_ORDER_X * w["order"][:, 0])
+    over = int((w["many"][:, 0] > bound).sum())
+    for k in ("many", "order"):
+        e, flips, moved, unexplained, n = w[k].T
+        who = "2 x 2" if k == "many" else "one rank by rows"
+        log(f"      {arch} first step, {who} vs one rank: gradient max |d| / max|g| over {len(e)} leaves "
+            f"{e.max():.3e} (median {np.median(e):.3e}); entries whose "
+            f"gradient sign differs {int(flips.sum())}, whose param moved "
+            f"more than lr / 2 {int(moved.sum())}, of them with |g| above "
+            f"twice the leaf's difference {int(unexplained.sum())}, of "
+            f"{int(n.sum())}; step losses one rank by rows "
+            f"{order.round(6).tolist()} (|d| "
+            f"{[f'{x:.3e}' for x in d_order]})")
+    log(f"      leaves over max({LF_GRAD_TOL:g}, {LF_ORDER_X} x the by-rows "
+        f"difference): {over}")
+    return lims, over == 0 and int(w["many"][:, 3].sum()) == 0
+
+
+def lf_first_step_diff(one, other, lr):
+    """Per leaf, another run's first step against one rank's: the
+    gradient's max |difference| over the leaf's max|g|, the entries whose
+    gradient sign differs, and the entries whose param after the step
+    differs by more than lr / 2, and of them those whose one-rank |g|
+    exceeds twice the leaf's max |gradient difference|. AdamW's first
+    update is lr x g / (|g| + eps) per entry (the moments are g and g^2):
+    two updates of it lr / 2 apart need gradients of opposite sign or at
+    the eps level, and either way the smaller |g| is below their
+    difference and the larger below twice it; a moved entry of the second
+    kind is one that rounding did not move."""
+    rows = []
+    for g0, p0, g, p in zip(*one, *other):
+        diff = (g - g0).abs()
+        err = float(diff.max())
+        moved = (p - p0).abs() > lr / 2
+        rows.append((err / max(float(g0.abs().max()), 1e-30),
+                     int((torch.sign(g) != torch.sign(g0)).sum()),
+                     int(moved.sum()),
+                     int((moved & (g0.abs() > 2 * err)).sum()), g0.numel()))
+    return rows
+
+
+def phase_lm_dist_families(dev):
+    """LM sharding of the other four families (``repro_torch.sharding``,
+    expert parallelism for MoE): (a) granite-moe-1b-a400m at full width
+    (d 1024, 32 experts top-8, vocab 49,155) cut to LF_LAYERS of 24
+    layers, 2 x 512 tokens, trained by ``launch.train.train_loop`` on 4
+    ranks of the one card (threads, a 2 x 2 (data, model) grid) against one
+    rank from the same seed: f32 LF_F32_STEPS steps within 1e-4, no
+    routing decision flipped; bf16 LF_STEPS steps within 5e-3 with the
+    2 x 2 run routed as the single rank's (``LfRoutes``' replay: bf16
+    router near-ties flip decisions between free runs from the first step,
+    whose counts are printed); the gathered init bit for bit, every
+    gradient in its parameter's placements, each rank's 16 of the 32
+    experts, moe_aux > 0, a gradient on every expert of every layer.
+    (b) xlstm-125m, whisper-base (1,500 stub frames) and recurrentgemma-9b
+    at full width (LF_OTHERS' depths), f32: LF_OTHER_STEPS steps of 2 x 512 on
+    the 2 x 2 grid within 1e-4 of one rank, then sharded prefill (the
+    forward's last logits) and LF_DECODE decode steps within
+    LF_SERVE_TOL x max|logit| (xlstm: its first step's gradient and
+    update held against rounding's, ``lf_witness``, and the prefill at
+    LF_SSM_PREFILL_TOL; why at the constant).
+    (c) the dry run of LF_CELLS on fake CUDA tensors over a fake group of
+    256 (16 x 16), traced at LD_DEPTH and LD_DEPTH + 1 units and carried
+    to full depth (``Traces``), started after (a)'s timed steps and run
+    beside the rest of (a) and (b): peak, args, FLOPs by type, bytes, collective
+    bytes by kind, the three terms at the H100's peaks, trace seconds.
+    (d) LF_REAL rows for real at full depth, each under DRYRUN_FIT of the
+    card, the fake group standing in for the other ranks: real peak over
+    the estimate within DRYRUN_BAND, ms against bound_time. dp_fused
+    launches (0) under path "lm_dist_families"."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.models.lm_types import ASSIGNED_SHAPES
+    from repro_torch.sharding.threads import ThreadedRanks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_phase = time.perf_counter()
+    failures = []
+    log(f"[16] LM sharding, the MoE, ssm, hybrid and encdec families; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB left allocated")
+    with Traces(LF_CELLS) as traces:
+        failures += lf_train_moe(dev, traces)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) the other three families -----------------------------
+        t_sub = time.perf_counter()
+        log(f"  (b) f32, {LF_OTHER_STEPS} steps of {LD_BATCH} x {LD_SEQ} "
+            f"tokens, then prefill + {LF_DECODE} decode steps: 4 ranks "
+            f"(2 x 2) against one rank")
+        for arch, layers in LF_OTHERS:
+            r = lf_other(arch, layers, dev, ThreadedRanks)
+            cfg = r["cfg"]
+            (a, ga), (b, gb) = (np.asarray(r[k]).T for k in ("one", "many"))
+            ssm = cfg.family == "ssm"
+            err = np.abs(a - b)
+            lims = [LF_TOL["float32"]] * len(a)
+            if ssm:
+                lims, wit = lf_witness(arch, a, r, lims)
+            tols = [(LF_SSM_PREFILL_TOL if ssm else LF_SERVE_TOL)
+                    * r["scale"]] + [LF_SERVE_TOL * r["scale"]] * LF_DECODE
+            ok = (np.isfinite(b).all() and all(err <= lims)
+                  and all(e <= t for e, t in zip(r["errs"], tols))
+                  and (not ssm or wit))
+            log(f"    {arch} ({cfg.n_layers} layers, d {cfg.d_model}): "
+                f"losses one rank {a.round(6).tolist()}, 2 x 2 "
+                f"{b.round(6).tolist()}, |d loss| "
+                f"{[f'{e:.3e}' for e in err]} (limits "
+                f"{[f'{x:.3e}' for x in lims]}); grad norms one rank "
+                f"{[f'{g:.4e}' for g in ga]}, 2 x 2 "
+                f"{[f'{g:.4e}' for g in gb]}; prefill + decode logits max "
+                f"|d| {[f'{e:.3e}' for e in r['errs']]} of max|logit| "
+                f"{r['scale']:.3f} (limits "
+                f"{[f'{t:.3e}' for t in tols]}); wall one rank "
+                f"{r['s_one']:.1f} s, 4 ranks {r['s_many']:.1f} s (beside "
+                f"the tracers) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(b) {arch}")
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        assert not dist.is_initialized()
+        log(f"    (b) {time.perf_counter() - t_sub:.1f} s")
+
+        # -- (c) the dry run ------------------------------------------
+        t_sub = time.perf_counter()
+        hw = roofline.h100()
+        rows = {}
+        for cell, row, wall in traces.rows():
+            rows[cell] = row
+            if row["status"] != "ok":
+                failures.append(f"(c) {row['cell']}")
+                log(f"    {row['cell']}: FAILED {row.get('error')}")
+                continue
+            log(f"    {row['cell']}: peak {row['mem_GiB']:.3f} GiB/rank "
+                f"(args {row['arg_bytes'] / 2**30:.3f}), FLOPs "
+                f"{row['flops/chip']:.4e} by type "
+                f"{ {k: f'{v:.4e}' for k, v in row['flops_by_dtype'].items()} }"
+                f", bytes {row['bytes/chip']:.4e}, collectives "
+                f"{ {k: f'{v:.4e}' for k, v in row['coll_by_kind'].items()} } "
+                f"({row['coll_count']}); t_compute "
+                f"{row['t_compute'] * 1e3:.3f} ms, t_memory "
+                f"{row['t_memory'] * 1e3:.3f} ms, t_collective "
+                f"{(row['t_ici'] + row['t_dcn']) * 1e3:.3f} ms -> "
+                f"{row['dominant']}, bound {row['bound_time'] * 1e3:.3f} "
+                f"ms; trace {row['trace_s']:.1f} s (layers "
+                f"{row['traced_layers']}; process {wall:.1f} s)")
+        log(f"  (c) dry run of {len(LF_CELLS)} cells on 16 x 16, "
+            f"{TRACE_PROCS} processes beside (b) and (a)'s untimed checks, on "
+            f"{hw.name}: {roofline.peak_for(hw, 'bfloat16'):.3g} FLOP/s "
+            f"bf16, {hw.peak_flops:.3g} f32, {hw.hbm_bw:.3g} B/s HBM, "
+            f"{hw.ici_bw:.3g} B/s NVLink; waited "
+            f"{time.perf_counter() - t_sub:.1f} s after (b)")
+
+    # -- (d) real runs of rank 0's program ------------------------------
+    t_sub = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    shapes = {s.name: s for s in ASSIGNED_SHAPES}
+    grid = mesh_mod.make_production_mesh(multi_pod=False)
+    log(f"  (d) rank 0's program for real on the card at full depth, the "
+        f"other ranks a fake process group (the time is the rank's compute "
+        f"alone); rows under {DRYRUN_FIT:.0%} of {total / 2**30:.3f} GiB")
+    misses = []
+    for arch, shape in LF_REAL:
+        row = rows[(arch, shape, False)]
+        if row["status"] != "ok":
+            continue
+        est = row["mem_GiB"] * 2**30
+        if est > DRYRUN_FIT * total:
+            log(f"    {row['cell']}: not run, estimate {est / 2**30:.3f} "
+                f"GiB")
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = dryrun.run_cell(arch, shapes[shape], grid, device=dev)
+        ratio = out["peak_bytes"] / est
+        bound = row["bound_time"] * 1e3
+        log(f"    {row['cell']}: max_memory_allocated above the allocation "
+            f"before its arguments ({out['base_bytes']} B) "
+            f"{out['peak_bytes']} B = {out['peak_bytes'] / 2**30:.3f} GiB, "
+            f"estimate {est / 2**30:.3f} GiB, ratio {ratio:.4f} (band "
+            f"{DRYRUN_BAND}); {out['ms']:.1f} ms a step (first "
+            f"{out['ms_first']:.1f} ms) vs bound_time {bound:.3f} ms "
+            f"({bound / out['ms']:.2%} of it; compute alone)")
+        if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+            misses.append((row["cell"], round(ratio, 4)))
+    if misses:
+        failures.append(f"(d) real / estimate outside {DRYRUN_BAND}: "
+                        f"{misses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"    (d) {time.perf_counter() - t_sub:.1f} s")
     launches = read_launches()
-    log(f"  dp_fused launches during phase 15: {launches} (none expected); "
+    log(f"  dp_fused launches during phase 16: {launches} (none expected); "
         f"phase {time.perf_counter() - t_phase:.1f} s")
     if failures:
-        raise AssertionError(f"phase 15 checks failed: {failures}")
+        raise AssertionError(f"phase 16 checks failed: {failures}")
     return launches
+
+
+def lf_train_moe(dev, traces):
+    """(a) of phase 16, which starts ``traces`` after its timed steps;
+    returns its failures."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build, moe
+    from repro_torch.sharding import ctx, plans
+    from repro_torch.sharding import state as sh_state
+    from repro_torch.sharding.threads import ThreadedRanks, rank_threads
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    failures = []
+    t_sub = time.perf_counter()
+    full = configs.get(LF_ARCH)
+    kw = dict(reduced=False, global_batch=LD_BATCH, seq_len=LD_SEQ,
+              loss_chunk=LD_CHUNK, log_every=1, seed=SEED, device=dev,
+              verbose=False)
+    log(f"  (a) train_loop of {LF_ARCH} at full width (d {full.d_model}, "
+        f"{full.moe.n_experts} experts top-{full.moe.top_k}, vocab "
+        f"{full.vocab}), {LF_LAYERS} of {full.n_layers} layers, {LD_BATCH} "
+        f"x {LD_SEQ} tokens: 4 ranks as a 2 x 2 (data, model) grid of "
+        f"threads on the one card (experts over model) against one rank")
+    # routing calls a step: a forward and remat's recompute per layer
+    per_step = 2 * LF_LAYERS
+    decisions = per_step * LD_BATCH * LD_SEQ
+    ms = lambda h: np.mean([x["ms"] for x in h[2:]])
+    with ThreadedRanks():
+        for dtype, steps in (("float32", LF_F32_STEPS),
+                             ("bfloat16", LF_STEPS)):
+            cfg = dataclasses.replace(full, n_layers=LF_LAYERS, dtype=dtype)
+            sharded = lambda r: train_loop(cfg, **kw, steps=steps,
+                                           model_axis=2)[1]
+            with LfRoutes() as routes:
+                t0 = time.perf_counter()
+                _, one = train_loop(cfg, **kw, steps=steps)
+                t1 = time.perf_counter()
+                many = rank_threads(sharded, 4)
+                t2 = time.perf_counter()
+            a, b = ld_losses(one), ld_losses(many[0])
+            flips = routes.flips(per_step)
+            same = all(np.array_equal(ld_losses(h), b) for h in many)
+            log(f"    {dtype}, {steps} steps: one rank "
+                f"{a.round(5).tolist()}; 2 x 2 {b.round(5).tolist()}; "
+                f"|d loss| {[f'{x:.3e}' for x in np.abs(a - b)]}; routing "
+                f"decisions (token, layer, forward and recompute) that "
+                f"differ between the runs, by step: {flips} of "
+                f"{decisions}; ranks agree {same}; wall one rank "
+                f"{t1 - t0:.1f} s, 4 ranks {t2 - t1:.1f} s; ms/step from "
+                f"step 3: one rank {ms(one):.1f}, 2 x 2 {ms(many[0]):.1f}")
+            if dtype == "bfloat16":
+                # held with the single rank's routing replayed
+                with LfRoutes(replay=routes.calls["one"]) as replayed:
+                    t0 = time.perf_counter()
+                    many = rank_threads(sharded, 4)
+                    t1 = time.perf_counter()
+                b = ld_losses(many[0])
+                same = all(np.array_equal(ld_losses(h), b) for h in many)
+                log(f"    {dtype}, {steps} steps, the 2 x 2 run routed as "
+                    f"the single rank's: {b.round(5).tolist()}; decisions "
+                    f"its own router would have taken otherwise, by step: "
+                    f"{replayed.flips(per_step, routes.calls['one'])} of "
+                    f"{decisions}; ranks agree {same}; wall 4 ranks "
+                    f"{t1 - t0:.1f} s")
+            elif any(flips):
+                log("    (f32 routing flipped: not a near-tie of bf16)")
+            d = np.abs(a - b)
+            ok = (same and np.isfinite(b).all() and all(d <= LF_TOL[dtype])
+                  and (dtype == "bfloat16" or not any(flips)))
+            log(f"    {dtype}: |d loss| {[f'{x:.3e}' for x in d]} (limit "
+                f"{LF_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(a) {dtype} losses")
+        traces.start()       # beside the untimed rest of (a) and (b)
+
+        cfg = dataclasses.replace(full, n_layers=LF_LAYERS)
+        api = build(cfg)
+
+        def init_and_grads(rank):
+            mesh = sh_state.device_mesh(sh_state.local_grid(2), dev)
+            plan = plans.make_plan(sh_state.grid(mesh), "train")
+            rules = ctx.ActivationRules(mesh=plan.mesh,
+                                        batch_axes=plan.batch_axes)
+            opt = optim.AdamW(lr=lambda s: 1e-4)
+            gen = torch.Generator(device=dev)
+            state = init_train_state(api, opt, gen.manual_seed(SEED), dev,
+                                     mesh=mesh)
+            single = api.init(gen.manual_seed(SEED), device=dev)
+            equal = all(torch.equal(sh_state.gather(x), y) for x, y in zip(
+                tree.leaves(state.params), tree.leaves(single)))
+            del single
+            pipe = pipeline_for(cfg, LD_SEQ, LD_BATCH, seed=SEED)
+            step = make_train_step(api, opt, loss_chunk=LD_CHUNK)
+            with ctx.activation_rules(rules):
+                _, aux, grads = step.loss_and_grads(
+                    state.params, sh_state.distribute_batch(
+                        pipe.batch(0, dev), mesh, plan))
+            paths = tree.flatten_with_paths(state.params)[1]
+            misplaced = [p for g, x, p in zip(tree.leaves(grads),
+                                              tree.leaves(state.params),
+                                              paths)
+                         if tuple(g.placements) != tuple(x.placements)]
+            ffn = state.params["blocks"]["ffn"]
+            local = [ffn[k].to_local().shape[1] for k in ("wi", "wg", "wo")]
+            dead = []
+            for k in ("wi", "wg", "wo"):
+                g = sh_state.gather(grads["blocks"]["ffn"][k])
+                alive = g.flatten(2).abs().amax(-1)[:, :cfg.moe.n_experts]
+                dead += [(k, int(i), int(j))
+                         for i, j in (alive == 0).nonzero().tolist()]
+            return (equal, misplaced, local, float(aux["moe_aux"]), dead)
+
+        t0 = time.perf_counter()
+        out = rank_threads(init_and_grads, 4)
+    equal = all(o[0] for o in out)
+    misplaced = sorted({p for o in out for p in o[1]})
+    local = [o[2] for o in out]
+    aux = out[0][3]
+    dead = out[0][4]
+    want = moe.padded_experts(cfg) // 2
+    ok = (equal and not misplaced and aux > 0 and not dead
+          and all(x == [want] * 3 for x in local))
+    log(f"    gathered 2 x 2 init == single rank's, bit for bit: {equal}; "
+        f"gradients not in their params' placements: {misplaced}; each "
+        f"rank's experts in wi/wg/wo {local} (of {moe.padded_experts(cfg)}"
+        f"); moe_aux {aux:.6f}; (weight, layer, expert) without a gradient:"
+        f" {dead} ({time.perf_counter() - t0:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("(a) init / placements / experts")
+    assert not dist.is_initialized()
+    log(f"    (a) {time.perf_counter() - t_sub:.1f} s")
+    return failures
 
 
 def main() -> int:
@@ -2727,6 +3375,7 @@ def main() -> int:
     by_path["lm_serve"] = phase_lm_serve(dev)
     by_path["lm_train"] = phase_lm_train(dev)
     by_path["lm_dist"] = phase_lm_dist(dev)
+    by_path["lm_dist_families"] = phase_lm_dist_families(dev)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches: the main path's (phase 3); each path's run beside it
     print(json.dumps({"kernels": [

@@ -30,8 +30,12 @@ that way). Real tensors give the same numbers.
                  matter: PyTorch's CUDA sort along a dimension longer than
                  4,096 (shorter ones sort in place) holds two int64 arrays
                  (index, segment) and a copy of the keys while it runs,
-                 (16 + key size) bytes an element. Other allocations inside
-                 a kernel call (a library's workspace) are not in it.
+                 (16 + key size) bytes an element; and its softmax backward
+                 (``_softmax_backward_data``) one more buffer of the
+                 gradient's size (measured on the H100 at (16, 8, 4096,
+                 1500) f32: 3,000 MiB beyond its output). Other
+                 allocations inside a kernel call (a library's workspace)
+                 are not in it.
   coll_bytes     the collective buffer bytes by kind, from the counting
                  communicator (``md/comm.DryRunComm``) when one is passed,
                  and from the functional collectives the trace issues (a
@@ -69,6 +73,7 @@ from repro_torch.analysis.roofline import COLL_KINDS, _wire_factor
 
 _aten = torch.ops.aten
 _SORTS = frozenset((_aten.sort.default, _aten.sort.stable))
+_SOFTMAX_BWD = _aten._softmax_backward_data.default
 # allocations that read nothing and write nothing yet
 _NO_TRAFFIC = frozenset((_aten.empty.memory_format, _aten.empty_strided.default,
                          _aten.new_empty.default,
@@ -229,6 +234,8 @@ class _Counter(TorchDispatchMode):
         if func in _SORTS and ins[0].device.type == "cuda":
             self.peak = max(self.peak, self.live + _sort_scratch(
                 func, args, kwargs))
+        if func is _SOFTMAX_BWD and ins[0].device.type == "cuda":
+            self.peak = max(self.peak, self.live + _nbytes(outs[0]))
         packet = func._overloadpacket
         if func.namespace == "_c10d_functional":
             if func._opname in _COLLECTIVES:

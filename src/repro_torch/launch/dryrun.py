@@ -348,11 +348,21 @@ def _lower(cfg, shape, mesh, multi_pod, name, verbose, dev, depth=None):
         traced = [cfg.n_layers]
     else:
         traced = [tail + step * depth, tail + step * (depth + 1)]
-        (a, ta), (b, tb) = [
-            _trace(dataclasses.replace(cfg, n_layers=n), shape, mesh,
-                   multi_pod, dev) for n in traced]
+        cut = [dataclasses.replace(cfg, n_layers=n) for n in traced]
+        seconds = 0.0
+        if dev.type == "cuda":
+            # the first trace of a cell's shapes in a process also counts a
+            # storage that DTensor's sharding propagation makes on fake
+            # CUDA tensors when it first meets an op (whisper-base
+            # decode_32k: 128 MiB in its 2-layer trace, none in the 3-layer
+            # one; none on fake CPU tensors), which the line through the
+            # two traces would carry to full depth: a first trace warms
+            # the propagation's cache
+            seconds = _trace(cut[0], shape, mesh, multi_pod, dev)[1]
+        (a, ta), (b, tb) = [_trace(c, shape, mesh, multi_pod, dev)
+                            for c in cut]
         totals = _extrapolate(a, b, (cfg.n_layers - traced[1]) // step)
-        seconds = ta + tb
+        seconds += ta + tb
     donated = totals.arg_bytes if shape.kind == "train" else 0
     hw = rl.h100() if dev.type == "cuda" else rl.HW_H100
     stats = rl.CollectiveStats(dict(totals.coll_bytes), totals.coll_wire_ici,

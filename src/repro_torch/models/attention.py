@@ -40,25 +40,26 @@ def init_attn_params(gen: torch.Generator, cfg: LMConfig, dtype,
     return p
 
 
+def split_heads(y: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd). Under activation rules, a
+    projection whose n heads the model axis does not divide is first made
+    whole on it: its columns may divide (qwen3's 8 x 128 on 16 ranks) but
+    would cut heads in half, and DTensor cannot unflatten such a split."""
+    rules = ctx.current()
+    if rules is not None and rules.axis_for("heads", n) is None:
+        y = constrain(y, "batch", None, None)
+    return y.reshape(*y.shape[:2], n, y.shape[-1] // n)
+
+
 def qkv_project(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, Hkv, hd); RoPE applied."""
-    b, s, _ = x.shape
-    hd = cfg.hd
+    s = x.shape[1]
     rules = ctx.current()
-
-    def heads(y, n):
-        # a projection whose n heads the model axis does not divide stays
-        # whole on it: its columns may divide (qwen3's 8 x 128 on 16 ranks)
-        # but would cut heads in half
-        if rules is not None and rules.axis_for("heads", n) is None:
-            y = constrain(y, "batch", None, None)
-        return y.reshape(b, s, n, hd)
-
-    q = heads(common.dense(p["wq"], x), cfg.n_heads)
-    k = heads(common.dense(p["wk"], x), cfg.n_kv_heads)
-    v = heads(common.dense(p["wv"], x), cfg.n_kv_heads)
+    q = split_heads(common.dense(p["wq"], x), cfg.n_heads)
+    k = split_heads(common.dense(p["wk"], x), cfg.n_kv_heads)
+    v = split_heads(common.dense(p["wv"], x), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = common.rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = common.rms_norm(p["k_norm"], k, cfg.rms_eps)
@@ -71,7 +72,13 @@ def qkv_project(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
         roles = ("batch_full", None, None, None)
     else:
         roles = ("batch", None, "heads", None)
-    return tuple(constrain(t, *roles) for t in (q, k, v))
+    # k/v whose heads the model axis does not divide stay whole on it; the
+    # ranks' attention on their q heads makes their gradient a partial sum
+    # over it, left to travel on to wk/wv's reduce-scatter
+    whole = (rules is not None
+             and rules.axis_for("heads", cfg.n_kv_heads) is None)
+    return (constrain(q, *roles),
+            *(constrain(t, *roles, grad=not whole) for t in (k, v)))
 
 
 def _expand_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
@@ -207,11 +214,12 @@ def _write_position_sharded(cache, new, pos) -> None:
     """``write_position`` into a DTensor cache whose sequence may be split
     over ranks, on the local shards and still without a host sync: the
     rank that holds ``pos`` writes ``new``, every other rank rewrites one
-    of its own positions with itself."""
+    of its own positions with itself. ``new`` is laid out as the cache
+    but for the sequence (a plan may split any other dim of a cache)."""
     from torch.distributed.tensor import Replicate, Shard
 
     off, n = ctx.local_range(cache, 1)
-    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+    rows = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
             for p in cache.placements]
     new_l = new.redistribute(cache.device_mesh, rows).to_local()
     loc, p = cache.to_local(), pos.to_local() if ctx.is_dtensor(pos) else pos
@@ -247,34 +255,69 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, H, hd); k_cache/v_cache: (B, S, Hkv, hd); ``cache_len`` the
     number of valid positions, a 0-d tensor on the device or an int.
+    DTensors run on each rank's shards: :func:`_decode_on_shards`.
     """
+    if ctx.is_dtensor(q):
+        return _decode_on_shards(q, k_cache, v_cache, cache_len,
+                                 window=window, softcap_val=softcap_val)
+    return _decode(q, k_cache, v_cache, cache_len, 0, window=window,
+                   softcap_val=softcap_val)
+
+
+def _decode(q, k_cache, v_cache, cache_len, offset: int, *, window: int,
+            softcap_val: float, reduce=lambda t, op: t):
+    """``decode_attention`` on plain tensors, the cache holding positions
+    [offset, offset + S); ``reduce(t, op)`` completes a max or a sum over
+    the sequence across the ranks that hold its other parts."""
     b, _, h, hd = q.shape
     s, n_kv = k_cache.shape[1], k_cache.shape[2]
     g = h // n_kv
-    # keep the cache sequence-split; q is grouped by kv head instead
-    k_cache = constrain(k_cache, "batch", "seq", None, None)
-    v_cache = constrain(v_cache, "batch", "seq", None, None)
-    # heads whole: the cache is split over the sequence, and DTensor cannot
-    # carry a split of both batch and heads through the batched product
-    q = constrain(q, "batch", None, None, None)
     qg = q.reshape(b, 1, n_kv, g, hd)
     logits = torch.einsum("bqngd,bsnd->bngqs", qg, k_cache).float() \
         * hd ** -0.5
-    logits = constrain(logits, "batch", None, None, None, "seq")
     logits = common.softcap(logits, softcap_val)
-    kpos = torch.arange(s, device=q.device)
-    if ctx.is_dtensor(logits):      # DTensor refuses plain tensors beside it
-        kpos = ctx.along(logits, -1, kpos)
+    kpos = torch.arange(offset, offset + s, device=q.device)
     valid = kpos < cache_len                                  # (S,)
     if window > 0:
         valid &= kpos >= cache_len - window
     logits = torch.where(valid, logits, NEG_INF)
-    m = logits.amax(-1, keepdim=True)
+    m = reduce(logits.amax(-1, keepdim=True), "max")
     p = torch.exp(logits - m)
-    out = torch.einsum("bngqs,bsnd->bqngd", p.to(q.dtype), v_cache)
-    denom = p.sum(-1).movedim(-1, 1)[..., None]               # (b,q,n,g,1)
+    out = reduce(torch.einsum("bngqs,bsnd->bqngd", p.to(q.dtype), v_cache),
+                 "sum")
+    denom = reduce(p.sum(-1), "sum").movedim(-1, 1)[..., None]  # (b,q,n,g,1)
     out = out / denom.clamp_min(1e-30).to(out.dtype)
     return out.reshape(b, 1, h * hd)
+
+
+def _decode_on_shards(q, k_cache, v_cache, cache_len, **kw):
+    """``decode_attention`` of DTensors, each rank on its batch rows and its
+    part of the cache's sequence (the serve plan splits the cache over
+    ``seq``), with every head: the running max, the softmax's sum and the
+    output are completed across the sequence's ranks (a max, then two
+    sums; the tiles stay plain tensors, whatever the batch: DTensor's own
+    batched products fail on a batch-1 cell)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    k_cache = constrain(k_cache, "batch", "seq", None, None)
+    v_cache = constrain(v_cache, "batch", "seq", None, None)
+    q = constrain(q, "batch", None, None, None)
+    mesh = q.device_mesh
+    seq = tuple(i for i, p in enumerate(k_cache.placements)
+                if isinstance(p, Shard) and p.dim == 1)
+    offset, _ = ctx.local_range(k_cache, 1)
+
+    def reduce(t, op):
+        pl = [Partial(op) if i in seq else p
+              for i, p in enumerate(q.placements)]
+        return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+            mesh, q.placements).to_local()
+
+    if ctx.is_dtensor(cache_len):
+        cache_len = cache_len.to_local()
+    out = _decode(ctx.local(q, seq), ctx.local(k_cache), ctx.local(v_cache),
+                  cache_len, offset, reduce=reduce, **kw)
+    return ctx.wrap(out, q)
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0,
@@ -310,9 +353,8 @@ def _on_shards(q, k, v, **kw):
     split over it (kv heads the axis does not divide) are cut to the
     rank's kv heads; their gradient is then a partial sum over that axis.
     The output (B, S, H*hd) keeps q's placements."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Shard
 
-    mesh = q.device_mesh
     if any(isinstance(p, Shard) and p.dim not in (0, 2)
            for t in (q, k, v) for p in t.placements):
         raise ValueError("sharded attention needs q/k/v split over batch "
@@ -327,12 +369,7 @@ def _on_shards(q, k, v, **kw):
             (hq % g == 0 and h0 % g == 0) or need1 - need0 == 1)):
         raise ValueError(f"q heads [{h0}, {h0 + hq}) do not map onto whole "
                          f"kv heads of [{k0}, {k0 + hk}) (group {g})")
-    kv_grad = [Partial() if isinstance(pk, Replicate)
-               and isinstance(pq, Shard) else pk
-               for pq, pk in zip(q.placements, k.placements)]
-    q_l = q.to_local()
-    k_l, v_l = (t.to_local(grad_placements=kv_grad)[:, :, need0 - k0:
-                                                    need1 - k0]
+    q_l = ctx.local(q)
+    k_l, v_l = (ctx.local_weight(t, q)[:, :, need0 - k0:need1 - k0]
                 for t in (k, v))
-    out = attention(q_l, k_l, v_l, **kw)
-    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+    return ctx.wrap(attention(q_l, k_l, v_l, **kw), q)

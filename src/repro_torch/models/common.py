@@ -86,11 +86,11 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
-def whole_but(w: torch.Tensor, dim: int) -> torch.Tensor:
+def whole_but(w: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
     """The DTensor ``w`` gathered over every mesh dim that does not split
     its dim ``dim`` (FSDP's all-gather of a weight before use; its backward
-    reduce-scatters the gradient into ``w``'s placements). A plain tensor
-    as it is."""
+    reduce-scatters the gradient into ``w``'s placements); over every mesh
+    dim when ``dim`` is None. A plain tensor as it is."""
     if not ctx.is_dtensor(w):
         return w
     from torch.distributed.tensor import Replicate, Shard
@@ -99,6 +99,17 @@ def whole_but(w: torch.Tensor, dim: int) -> torch.Tensor:
             for p in w.placements]
     return w if want == list(w.placements) else w.redistribute(
         w.device_mesh, want)
+
+
+def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The DTensor ``x`` gathered over the mesh dims that split its dim
+    ``dim`` (its other splits kept)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(
+        x.device_mesh, want)
 
 
 def _embed_sharded(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -242,8 +253,16 @@ def remat(enabled: bool, fn: Callable[..., Any], *args: Any) -> Any:
     """``fn(*args)``, under activation checkpointing when ``enabled`` (a
     model's ``cfg.remat``) and grad mode is on (never while serving under
     ``inference_mode``): only ``args`` are kept for backward, which reruns
-    ``fn`` for the rest."""
+    ``fn`` for the rest, under the activation rules of the forward (the
+    rules are per thread, and the backward of CUDA tensors runs on
+    autograd's device thread)."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
+        rules = ctx.current()
+
+        def rerun(*a):
+            with ctx.activation_rules(rules):
+                return fn(*a)
+
+        return checkpoint(rerun, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)

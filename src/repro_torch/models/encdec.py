@@ -22,6 +22,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import constrain
 
 
@@ -91,8 +92,10 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
 
 
 def _heads(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) -> (B, S, H, d // H)."""
-    return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, -1)
+    """(B, S, d) -> (B, S, H, d // H), split over batch and heads (whole
+    heads when the model axis does not divide them: ``split_heads``)."""
+    return constrain(attn.split_heads(t, cfg.n_heads),
+                     "batch", None, "heads", None)
 
 
 def _mha(p, cfg: LMConfig, x_q, x_kv, *, causal: bool,
@@ -109,23 +112,30 @@ def _mha(p, cfg: LMConfig, x_q, x_kv, *, causal: bool,
         o = attn.attention(q, k, v, causal=causal)
     else:
         o = attn.full_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return common.dense(p["wo"], o.reshape(b, sq, d)), (k, v)
+    # summed whole over the model axis before it joins the residual
+    # (``griffin.recurrent_block``)
+    return constrain(common.dense(p["wo"], o.reshape(b, sq, d)),
+                     "batch", None, None), (k, v)
+
+
+def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
+    """A layer's MLP branch, summed whole over the model axis (``_mha``)."""
+    return constrain(common.gelu_mlp(lp["mlp"], h), "batch", None, None)
 
 
 def encode(params: Dict[str, Any], cfg: LMConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, n_frames, d) stub embeddings -> encoder output."""
     dt = common.dtype_of(cfg.dtype)
-    x = frames.to(dt) + sinusoids(frames.shape[1], cfg.d_model,
-                                  frames.device).to(dt)
+    x = frames.to(dt) + ctx.like(frames, sinusoids(
+        frames.shape[1], cfg.d_model, frames.device).to(dt))
     x = constrain(x, "batch", None, None)
 
     def body(lp, x):
         h = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
         x = x + _mha(lp["attn"], cfg, h, h, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        return constrain(x + common.gelu_mlp(lp["mlp"], h),
-                         "batch", None, None)
+        return constrain(x + _mlp(lp, h), "batch", None, None)
 
     for lp in common.unstack_layers(params["enc"], cfg.n_enc_layers):
         x = common.remat(cfg.remat, body, lp, x)
@@ -134,8 +144,9 @@ def encode(params: Dict[str, Any], cfg: LMConfig,
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     dt = common.dtype_of(cfg.dtype)
-    return lambda h: constrain(h @ params["embed"].T.to(dt),
-                               "batch", None, "vocab")
+    # tied: the table gathered as the lookup gathers it (``transformer``)
+    w = common.whole_but(params["embed"], 0).T
+    return lambda h: constrain(h @ w.to(dt), "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -146,7 +157,8 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
     dt = common.dtype_of(cfg.dtype)
     enc_out = encode(params, cfg, frames)
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(dt) + params["pos_dec"][:s].to(dt)
+    x = common.embed(params["embed"], tokens).to(dt) \
+        + params["pos_dec"][:s].to(dt)
     x = constrain(x, "batch", None, None)
 
     def body(lp, x, enc_out):
@@ -155,13 +167,12 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
         h = common.layer_norm(lp["ln_x"], x, cfg.rms_eps)
         x = x + _mha(lp["cross_attn"], cfg, h, enc_out, causal=False)[0]
         h = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        return constrain(x + common.gelu_mlp(lp["mlp"], h),
-                         "batch", None, None)
+        return constrain(x + _mlp(lp, h), "batch", None, None)
 
     for lp in common.unstack_layers(params["dec"], cfg.n_layers):
         x = common.remat(cfg.remat, body, lp, x, enc_out)
     x = common.layer_norm(params["ln_dec_post"], x, cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = ctx.like(x, torch.zeros((), dtype=torch.float32, device=x.device))
     if return_hidden:
         return x, aux
     return logits_fn(params, cfg)(x), aux
@@ -179,9 +190,11 @@ def init_cache(params: Dict[str, Any], cfg: LMConfig, batch: int,
                max_len: int,
                frames: Optional[torch.Tensor] = None) -> EncDecCache:
     """The cross-KV is computed from the encoder output once (if frames are
-    given; zeros otherwise, as in the reference)."""
+    given; zeros otherwise, as in the reference). With DTensor params the
+    self-KV is split over the batch and the sequence (the dense family's
+    roles) and the cross-KV laid out as the encoder output computes it."""
     dt = common.dtype_of(cfg.dtype)
-    dev = params["embed"].device
+    ref = params["embed"]
     h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     shape = (cfg.n_layers, batch, max_len, h, hd)
     if frames is not None:
@@ -195,42 +208,42 @@ def init_cache(params: Dict[str, Any], cfg: LMConfig, batch: int,
                           for lp in layers])
     else:
         xshape = (cfg.n_layers, batch, cfg.n_audio_frames, h, hd)
-        ck = torch.zeros(xshape, dtype=dt, device=dev)
-        cv = torch.zeros(xshape, dtype=dt, device=dev)
+        ck, cv = (ctx.zeros(ref, xshape, dt, None, "batch", None, None, None)
+                  for _ in range(2))
+    sk, sv = (ctx.zeros(ref, shape, dt, None, "batch", "seq", None, None)
+              for _ in range(2))
     return EncDecCache(
-        self_k=torch.zeros(shape, dtype=dt, device=dev),
-        self_v=torch.zeros(shape, dtype=dt, device=dev),
-        cross_k=ck, cross_v=cv,
-        length=torch.zeros((), dtype=torch.int32, device=dev))
+        self_k=sk, self_v=sv, cross_k=ck, cross_v=cv,
+        length=ctx.like(ref, torch.zeros((), dtype=torch.int32,
+                                         device=ref.device)))
 
 
 def decode_step(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
                 cache: EncDecCache) -> Tuple[torch.Tensor, EncDecCache]:
     dt = common.dtype_of(cfg.dtype)
-    b = tokens.shape[0]
-    h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     pos_row = params["pos_dec"].index_select(0, cache.length.reshape(1).long())
-    x = params["embed"][tokens].to(dt) + pos_row.to(dt)
+    x = constrain(common.embed(params["embed"], tokens).to(dt)
+                  + pos_row.to(dt), "batch", None, None)
     n_valid = cache.length + 1
     n_frames = cache.cross_k.shape[2]
     layers = common.unstack_layers(params["dec"], cfg.n_layers)
     for i, lp in enumerate(layers):
         sk, sv = cache.self_k[i], cache.self_v[i]
         hh = common.layer_norm(lp["ln1"], x, cfg.rms_eps)
-        q = common.dense(lp["self_attn"]["wq"], hh).reshape(b, 1, h, hd)
-        k = common.dense(lp["self_attn"]["wk"], hh).reshape(b, 1, h, hd)
-        v = common.dense(lp["self_attn"]["wv"], hh).reshape(b, 1, h, hd)
+        q = _heads(cfg, common.dense(lp["self_attn"]["wq"], hh))
+        k = _heads(cfg, common.dense(lp["self_attn"]["wk"], hh))
+        v = _heads(cfg, common.dense(lp["self_attn"]["wv"], hh))
         attn.write_position(sk, k, cache.length)
         attn.write_position(sv, v, cache.length)
         o = attn.decode_attention(q, sk, sv, n_valid)
         x = x + common.dense(lp["self_attn"]["wo"], o)
         hh = common.layer_norm(lp["ln_x"], x, cfg.rms_eps)
-        q = common.dense(lp["cross_attn"]["wq"], hh).reshape(b, 1, h, hd)
+        q = _heads(cfg, common.dense(lp["cross_attn"]["wq"], hh))
         o = attn.decode_attention(q, cache.cross_k[i], cache.cross_v[i],
                                   n_frames)
         x = x + common.dense(lp["cross_attn"]["wo"], o)
         hh = common.layer_norm(lp["ln2"], x, cfg.rms_eps)
-        x = x + common.gelu_mlp(lp["mlp"], hh)
+        x = x + _mlp(lp, hh)
     x = common.layer_norm(params["ln_dec_post"], x, cfg.rms_eps)
     logits = logits_fn(params, cfg)(x)[:, 0]
     return logits, cache._replace(length=n_valid)

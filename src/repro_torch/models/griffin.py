@@ -25,8 +25,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.lm_types import LMConfig
-from repro_torch.sharding.ctx import constrain
 from repro_torch.models.xlstm import _causal_conv1d
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 _RGLRU_C = 8.0
 
@@ -122,6 +123,41 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
     return torch.cat(hs, dim=1)
 
 
+_GATES = ("w_rgate", "w_igate", "b_rgate", "b_igate", "lam")
+
+
+def _rglru_on_shards(p, cfg: LMConfig, u: torch.Tensor,
+                     h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """The RG-LRU of a DTensor ``u`` (B, S, dr), each rank on its batch
+    rows and its part of the recurrence width: the scan is elementwise in
+    dr and the gates mix within a head, so a rank holding whole heads needs
+    no other rank (the reference's plan: ``lam``/``b_[ri]gate`` and the
+    gates' heads over ``model``, no sequence parallelism). dr is split
+    over the model axis only when it divides the heads, else whole. Each
+    gate leaf is used as the plan lays it out when its split matches the
+    rank's part of dr, else gathered and cut to that part (the tail's
+    leaves, which the plan lays out as if stacked)."""
+    role = None if ctx.current().axis_for("heads", cfg.n_heads) is None \
+        else "model"
+    u = constrain(u, "batch", None, role)
+    off, n = ctx.local_range(u, 2)
+    dh = u.shape[2] // cfg.n_heads
+    gates = {}
+    for name in _GATES:
+        w = common.whole_but(p[name], 0)
+        lo, hi = (off, off + n) if w.dim() == 1 else (off // dh,
+                                                      (off + n) // dh)
+        if ctx.local_range(w, 0) == (lo, hi - lo):
+            gates[name] = ctx.local_weight(w, u)
+        else:
+            gates[name] = ctx.local_weight(common.whole_but(w, None),
+                                           u)[lo:hi]
+    if h0 is not None:
+        h0 = ctx.local(constrain(h0, "batch", role))
+    h = rglru_scan(*_rglru_coeffs(gates, ctx.local(u).float()), h0)
+    return ctx.wrap(h, u)
+
+
 def recurrent_block(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
                     state: Optional[Dict[str, torch.Tensor]] = None):
     """Griffin recurrent block + FFN. state = {"h": (B,dr), "conv": (B,W-1,dr)}."""
@@ -130,11 +166,19 @@ def recurrent_block(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
     u = xn @ p["w_x"].to(xn.dtype)
     conv_state = None if state is None else state["conv"]
     u, conv_new = _causal_conv1d(u, p["conv_w"].to(u.dtype), conv_state)
-    a, drive = _rglru_coeffs(p, u.float())
-    h = rglru_scan(a, drive, None if state is None else state["h"])
-    x = x + (h.to(x.dtype) * y) @ p["w_out"].to(x.dtype)
+    h0 = None if state is None else state["h"]
+    if ctx.is_dtensor(u):
+        h = _rglru_on_shards(p, cfg, u, h0)
+    else:
+        h = rglru_scan(*_rglru_coeffs(p, u.float()), h0)
+    # each branch summed whole over the model axis before it joins the
+    # residual (``transformer._block_kv``): left to DTensor, the add may
+    # reduce-scatter the partial sum over the sequence, and a product of
+    # that residual then fails to place
+    x = x + constrain((h.to(x.dtype) * y) @ p["w_out"].to(x.dtype),
+                      "batch", None, None)
     hn = common.rms_norm(p["ffn_norm"], x, cfg.rms_eps)
-    x = x + common.swiglu(p["ffn"], hn)
+    x = x + constrain(common.swiglu(p["ffn"], hn), "batch", None, None)
     return x, {"h": h[:, -1], "conv": conv_new}
 
 
@@ -155,9 +199,10 @@ def local_attn_block(p: Dict[str, Any], cfg: LMConfig, x: torch.Tensor,
     h = common.rms_norm(p["attn_norm"], x, cfg.rms_eps)
     q, k, v = attn.qkv_project(p["attn"], cfg, h, positions)
     o = attn.attention(q, k, v, causal=True, window=cfg.window)
-    x = x + common.dense(p["attn"]["wo"], o)
+    x = x + constrain(common.dense(p["attn"]["wo"], o), "batch", None, None)
     h = common.rms_norm(p["ffn_norm"], x, cfg.rms_eps)
-    return x + common.swiglu(p["ffn"], h), (k, v)
+    return (x + constrain(common.swiglu(p["ffn"], h), "batch", None, None),
+            (k, v))
 
 
 # ------------------------------------------------------------------ full model
@@ -216,16 +261,19 @@ def _sorted_names(group: Dict[str, Any]) -> List[str]:
 
 def _embed(params, cfg, tokens, embeds=None):
     dt = common.dtype_of(cfg.dtype)
-    x = (params["embed"][tokens] if embeds is None else embeds).to(dt)
+    x = (common.embed(params["embed"], tokens) if embeds is None
+         else embeds).to(dt)
     # times sqrt(d) rounded to the compute dtype, as the reference scales
-    return constrain(x * torch.tensor(cfg.d_model ** 0.5, dtype=dt,
-                                      device=x.device), "batch", "seq", None)
+    return constrain(x * ctx.like(x, torch.tensor(
+        cfg.d_model ** 0.5, dtype=dt, device=x.device)), "batch", "seq", None)
 
 
 def logits_fn(params: Dict[str, Any], cfg: LMConfig):
     dt = common.dtype_of(cfg.dtype)
-    return lambda h: constrain(common.softcap(h @ params["embed"].T.to(dt),
-                                              30.0), "batch", None, "vocab")
+    # tied: the table gathered as the lookup gathers it (``transformer``)
+    w = common.whole_but(params["embed"], 0).T
+    return lambda h: constrain(common.softcap(h @ w.to(dt), 30.0),
+                               "batch", None, "vocab")
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
@@ -233,7 +281,8 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
             return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     x = _embed(params, cfg, tokens, embeds)
     b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = ctx.like(x, torch.arange(s, device=x.device).expand(b, s),
+                         "batch", None)
 
     def group_apply(group, x):
         for name in _sorted_names(group):
@@ -249,7 +298,7 @@ def forward(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,
         # the periods remat as the reference's scan body does; the tail not
         x = common.remat(cfg.remat and i < n_periods, group_apply, group, x)
     x = common.rms_norm(params["final_norm"], x, cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = ctx.like(x, torch.zeros((), dtype=torch.float32, device=x.device))
     if return_hidden:
         return x, aux
     return logits_fn(params, cfg)(x), aux

@@ -144,7 +144,9 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     x = common.rms_norm(params["final_norm"], x, cfg.rms_eps)
     if return_hidden:
         return x, aux
-    return logits_fn(params, cfg)(x), aux
+    # the head runs sequence-unsharded, as the loss does (``train/steps``):
+    # DTensor cannot place the head's product of a sequence-split residual
+    return logits_fn(params, cfg)(constrain(x, "batch", None, None)), aux
 
 
 def prefill(params: Dict[str, Any], cfg: LMConfig, tokens: torch.Tensor,

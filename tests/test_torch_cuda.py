@@ -669,3 +669,94 @@ def test_lm_train_step_on_the_card_matches_the_cpu(dev, arch):
     torch.testing.assert_close(m_g["grad_norm"].cpu(), m_c["grad_norm"],
                                rtol=1e-4, atol=0)
     assert new_g.step.device.type == "cuda" and int(new_g.step) == 1
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_thread_ranks_matches_one_rank(dev):
+    """``moe_ffn`` of REDUCED qwen2-moe at capacity 0.5 (drops), f32, on 4
+    thread-ranks of the card as a (1, 4) grid (``sharding.threads``):
+    each rank holds and runs e_pad / 4 experts, and the output and every
+    gradient equal one rank's within 1e-5 of their largest entry."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.sharding import ctx, plans
+    from repro_torch.sharding import state as sh_state
+    from repro_torch.sharding.threads import ThreadedRanks, rank_threads
+    from repro_torch.train import tree
+
+    base = configs.get_reduced("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(
+        base.moe, capacity_factor=0.5))
+    p = moe.init_moe_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+
+    def run(p, x, w):
+        p = tree.tree_map(lambda t: t.detach().requires_grad_(True), p)
+        x = x.detach().requires_grad_(True)
+        out, aux = moe.moe_ffn(p, cfg, x)
+        leaves = [x] + tree.leaves(p)
+        return out, torch.autograd.grad((out * w).sum() + aux, leaves), \
+            leaves
+
+    want, want_g, _ = run(p, x, w)
+
+    def rank(r):
+        mesh = sh_state.device_mesh(sh_state.local_grid(4), dev)
+        plan = plans.make_plan(sh_state.grid(mesh), "train")
+        rules = ctx.ActivationRules(mesh=plan.mesh,
+                                    batch_axes=plan.batch_axes)
+        placed = sh_state.distribute({"ffn": p}, mesh, plans.param_shardings(
+            plan, {"ffn": p}))["ffn"]
+        spec = plans.batch_spec(plan, 4, 2)
+        with ctx.activation_rules(rules):
+            out, grads, leaves = run(placed, sh_state.place(x, mesh, spec),
+                                     sh_state.place(w, mesh, spec))
+            grads = sh_state.like_params(list(grads), leaves)
+            return (out.full_tensor(), [g.full_tensor() for g in grads],
+                    [placed[k].to_local().shape[0] for k in ("wi", "wg",
+                                                             "wo")])
+
+    with ThreadedRanks():
+        out, grads, local = rank_threads(rank, 4)[0]
+    assert local == [moe.padded_experts(cfg) // 4] * 3
+    for got, ref_ in zip([out] + grads, [want] + list(want_g)):
+        err = float((got - ref_).abs().max())
+        assert err <= 1e-5 * float(ref_.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_traced_peak_of_full_attention_matches_the_card(dev):
+    """``op_cost``'s peak of full attention's forward and backward (its
+    softmax backward's hidden buffer counted) against the card's
+    max_memory_allocated, within 5%."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import op_cost
+    from repro_torch.models import attention
+
+    def run(q, k, v):
+        out = attention.full_attention(q, k, v, causal=False)
+        return torch.autograd.grad(out.float().square().sum(), [q])
+
+    shape = [(4, s, 8, 64) for s in (1024, 1500, 1500)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for s in shape)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) - sum(
+        t.numel() * t.element_size() for t in (q, k, v))
+    run(q, k, v)
+    torch.cuda.synchronize(dev)
+    real = torch.cuda.max_memory_allocated(dev) - base
+    with FakeTensorMode():
+        fake = [torch.empty(s, device=dev, dtype=torch.bfloat16)
+                .requires_grad_(True) for s in shape]
+        est = op_cost.analyze_fn(run, *fake).peak_bytes
+    assert 0.95 <= real / est <= 1.05, (real, est)

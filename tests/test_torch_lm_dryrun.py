@@ -26,7 +26,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import RankGrid
 from repro_torch.models import build
 from repro_torch.models.lm_types import ASSIGNED_SHAPES, ShapeSpec
-from repro_torch.sharding import plans, state
+from repro_torch.sharding import ctx, plans, state
 from repro_torch.train import tree
 
 torch.set_num_threads(1)
@@ -170,6 +170,35 @@ def test_sharded_matmul_flops_and_collectives_are_the_ranks():
     assert rs.coll_wire_ici == d * (f // 2) * 4 * (2 - 1) / 2
 
 
+def test_constrain_reduce_scatters_a_partial_gradient():
+    """A residual split over the sequence gathered whole over ``model``
+    (``transformer._block_kv``'s normed input) before a model-split
+    product: the gradient arrives a partial sum over ``model`` and is
+    reduce-scattered straight back into the sequence split, by arithmetic;
+    never all-reduced whole and then sliced (twice the bytes)."""
+    b, s, d, f = 4, 32, 64, 128
+    rules = ctx.ActivationRules(mesh=GRID, batch_axes=("data",),
+                                shard_seq=True)
+    with dryrun.fake_process_group(GRID.size):
+        mesh = state.device_mesh(GRID, CPU)
+        with FakeTensorMode():
+            x = plans_place(torch.zeros(b, s, d), mesh,
+                            ("data", "model", None))
+            w = plans_place(torch.zeros(d, f), mesh, (None, "model"))
+
+            def grad_of_x(x, w):
+                x = x.detach().requires_grad_(True)
+                with ctx.activation_rules(rules):
+                    h = ctx.constrain(x, "batch", None, None) @ w
+                return torch.autograd.grad(h, [x], torch.ones_like(h))[0]
+
+            cost = _traced(grad_of_x, x, w)
+    rows = b // 2 * s * d * 4                 # a data rank's (b/2, s, d)
+    assert cost.coll_bytes["all-gather"] == rows     # the forward's
+    assert cost.coll_bytes["reduce-scatter"] == rows
+    assert cost.coll_bytes["all-reduce"] == 0 and cost.coll_count == 2
+
+
 def plans_place(full, mesh, spec):
     return state.place(full, mesh, spec)
 
@@ -236,3 +265,105 @@ def test_failed_cell_is_a_row_and_the_cli_exits_1(capsys, monkeypatch):
     assert dryrun.main(["--device", "cpu", "--arch", "qwen3-1.7b",
                         "--shape", "train_4k"]) == 1
     assert "0 ok, 0 skipped, 1 FAILED" in capsys.readouterr().out
+
+
+# ------------------------------------------- the MoE, ssm, hybrid, encdec
+
+UNEVEN = RankGrid(("data", "model"), (1, 4))     # 2 heads on 4 ranks
+FAMILY_CELLS = {
+    "moe-train": ("granite-moe-1b-a400m", ShapeSpec("train_tiny", 32, 8,
+                                                    "train"), GRID),
+    "moe-prefill": ("qwen2-moe-a2.7b", ShapeSpec("prefill_tiny", 32, 8,
+                                                 "prefill"), GRID),
+    "moe-decode": ("qwen2-moe-a2.7b", ShapeSpec("decode_tiny", 64, 8,
+                                                "decode"), UNEVEN),
+    "ssm-train-uneven": ("xlstm-125m", ShapeSpec("train_tiny", 32, 8,
+                                                 "train"), UNEVEN),
+    "ssm-decode-uneven": ("xlstm-125m", ShapeSpec("decode_tiny", 64, 8,
+                                                  "decode"), UNEVEN),
+    "ssm-long": ("xlstm-125m", ShapeSpec("long_tiny", 256, 1, "decode"),
+                 GRID),
+    "hybrid-train": ("recurrentgemma-9b", ShapeSpec("train_tiny", 32, 8,
+                                                    "train"), GRID),
+    "hybrid-prefill-uneven": ("recurrentgemma-9b", ShapeSpec(
+        "prefill_tiny", 32, 8, "prefill"), UNEVEN),
+    "hybrid-long": ("recurrentgemma-9b", ShapeSpec("long_tiny", 256, 1,
+                                                   "decode"), UNEVEN),
+    "encdec-train": ("whisper-base", ShapeSpec("train_tiny", 32, 8, "train"),
+                     GRID),
+    "encdec-decode-uneven": ("whisper-base", ShapeSpec("decode_tiny", 64, 8,
+                                                       "decode"), UNEVEN),
+}
+
+
+@pytest.mark.parametrize("cell", FAMILY_CELLS)
+def test_family_tiny_cells_are_ok(cell):
+    """A tiny cell of each family, REDUCED: on (1, 4) xlstm's and
+    recurrentgemma's 2 heads (whisper's 4 in decode: its 4 heads divide)
+    and qwen2-moe's experts; batch-1 long-context decode for the recurrent
+    families."""
+    arch, shape, grid = FAMILY_CELLS[cell]
+    row = dryrun.lower_cell(configs.get_reduced(arch), shape, grid, False,
+                            verbose=False, device="cpu")
+    assert row["status"] == "ok", row.get("error")
+    assert row["flops/chip"] > 0 and row["bytes/chip"] > 0
+    assert row["mem_GiB"] > 0 and row["coll_count"] > 0
+    assert sum(row["flops_by_dtype"].values()) == row["flops/chip"]
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_cut_depth_carries_every_count_for_the_hybrid_family(kind):
+    """recurrentgemma's pattern (r, r, l) with its (r, r) tail, 5 periods:
+    ``depth=2`` traces the tail + 2 and + 3 periods (8 and 11 layers) and
+    carries them to 17, equal to the 17-layer trace in every count and the
+    peak."""
+    cfg = dataclasses.replace(configs.get_reduced("recurrentgemma-9b"),
+                              n_layers=17)
+    shape = ShapeSpec(f"{kind}_tiny", 64 if kind == "decode" else 32, 8,
+                      kind)
+    full = dryrun.lower_cell(cfg, shape, GRID, False, verbose=False,
+                             device="cpu")
+    cut = dryrun.lower_cell(cfg, shape, GRID, False, verbose=False,
+                            device="cpu", depth=2)
+    assert full["status"] == cut["status"] == "ok"
+    assert (full["traced_layers"], cut["traced_layers"]) == ([17], [8, 11])
+    for key in ("flops/chip", "bytes/chip", "coll_bytes/chip", "t_compute",
+                "t_memory", "t_ici", "t_dcn", "mem_GiB", "arg_bytes",
+                "temp_bytes", "alias_bytes", "coll_by_kind", "coll_count",
+                "flops_by_dtype", "bound_time"):
+        assert cut[key] == pytest.approx(full[key], rel=1e-12, abs=0), key
+
+
+def test_expert_parallel_moe_counts_the_ranks_experts():
+    """``moe_ffn`` of REDUCED granite-moe (8 experts padded to 16) on rank 0
+    of (2, 2), f32, forward: the rank's FLOPs are its router product over
+    its rows and the three expert products of its e_pad / 2 experts, each
+    over the whole capacity buffer; its all-reduces are the combine's
+    partial sum over ``model`` (its rows, f32) and the aux loss's two sums
+    over ``data``."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get_reduced("granite-moe-1b-a400m"),
+                              dtype="float32")
+    b, s = 4, 32
+    e_pad, cap = moe.padded_experts(cfg), moe.capacity(cfg, s)
+    d, f, e = cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts
+    with dryrun.fake_process_group(GRID.size):
+        mesh = state.device_mesh(GRID, CPU)
+        plan = plans.make_plan(GRID, "train")
+        rules = ctx.ActivationRules(mesh=GRID,
+                                    batch_axes=plan.batch_axes)
+        with FakeTensorMode(), ctx.activation_rules(rules):
+            p = moe.init_moe_params(torch.Generator(), cfg, torch.float32,
+                                    "meta")
+            specs = plans.param_shardings(plan, {"ffn": p})
+            p = {k: plans_place(torch.zeros(v.shape), mesh, specs[f"ffn/{k}"])
+                 for k, v in p.items()}
+            x = plans_place(torch.zeros(b, s, d), mesh, ("data", None, None))
+            cost = _traced(lambda p, x: moe.moe_ffn(p, cfg, x), p, x)
+            local = p["wi"].to_local().shape[0]
+    rows = b // 2
+    assert local == e_pad // 2
+    experts = 3 * 2 * rows * local * cap * d * f
+    assert cost.flops == 2 * rows * s * d * e + experts
+    assert cost.coll_bytes["all-reduce"] == rows * s * d * 4 + 2 * e * 4

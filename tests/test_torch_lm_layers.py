@@ -254,6 +254,47 @@ def test_slstm_block():
     close_trees(st, st_r, what="state")
 
 
+def test_slstm_scan_gradients_equal_autograd_of_the_step_loop():
+    """``xlstm.slstm_scan`` (the recurrence as one op, its reverse pass
+    written out) against autograd of the eager step loop, from a nonzero
+    state, with gradients into every step's state and the final one:
+    every input's gradient within 1e-5 x max(1, max|g|)."""
+    rng = np.random.default_rng(3)
+    b, s, h, dh = 3, 9, 2, 4
+    d = h * dh
+    r = torch.from_numpy(rng.normal(0, 0.5, (4, h, dh, dh)).astype(
+        np.float32))
+    wx = torch.from_numpy(rng.normal(size=(b, s, 4 * d)).astype(np.float32))
+    st0 = [torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+           for _ in range(4)]                            # c, n, h, m
+    st0[1] = st0[1].abs() + 0.5
+    ws = [torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+          for _ in range(4)]
+
+    def grads(scan):
+        ins = [t.clone().requires_grad_(True) for t in (r, wx, *st0)]
+        if scan:
+            outs = xlstm.slstm_scan(*ins, h)             # h, c, n, m
+        else:
+            st, steps = xlstm.SLSTMState(*ins[2:]), []
+            for t in range(s):
+                st = xlstm._slstm_step(ins[0], h, ins[1][:, t], st)
+                steps.append(st)
+            outs = [torch.stack([getattr(x, f) for x in steps], 1)
+                    for f in ("h", "c", "n", "m")]
+        loss = sum((o * w).sum() for o, w in zip(outs, ws)) \
+            + outs[1][:, -1].square().sum()
+        return [o.detach() for o in outs], torch.autograd.grad(loss, ins)
+
+    (outs, got), (want_outs, want) = grads(True), grads(False)
+    for a, e in zip(outs, want_outs):
+        assert torch.equal(a, e)
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(
+            a.numpy(), e.numpy(), rtol=0,
+            atol=1e-5 * max(1.0, float(e.abs().max())))
+
+
 def test_encode():
     rc, pc = cfgs("whisper_base")
     pj, pt = ref_params("whisper_base"), port_params("whisper_base")
