@@ -11,7 +11,17 @@ and 128 in f32 and at 128 in bf16; then the port alone with the sLSTM
 recurrent matrices ``r_zifo`` at std 1/sqrt(head dim) instead of the
 init's 1/sqrt(4) (phase 13's rescaling).
 
+``--row-order``: whether the first-step gradient's sensitivity to the
+order of a sum is the port's alone. Phase 16 (b) holds the sharded
+xlstm-125m against a one-rank run that takes the gradient a batch row at
+a time and averages it. Here both packages take that gradient both ways
+on the same weights (the port's init from seed 0 with phase 16's
+rescaled ``r_zifo``) and batch (2 x 512 tokens, f32, ``loss_chunk``
+256), at 8 and 12 layers, and print per package the largest over the
+leaves of max |d g| / max |g| (and the median and the leaf).
+
     PYTHONPATH=src python scripts/lm_train_diagnostics.py    # ~3-5 min
+    PYTHONPATH=src python scripts/lm_train_diagnostics.py --row-order
 """
 
 from __future__ import annotations
@@ -98,5 +108,88 @@ def main():
            [bridge.to_numpy(g) for g in tree.leaves(grads)], paths)
 
 
+def order_ratios(whole, rows, paths):
+    """Per leaf max |whole - rows| / max |whole|; prints the largest, the
+    median and the leaf of the largest."""
+    r = np.array([float(np.abs(a - b).max()) / max(float(np.abs(a).max()),
+                                                    1e-30)
+                  for a, b in zip(whole, rows)])
+    i = int(np.argmax(r))
+    return f"max {r[i]:.3e} ({paths[i]}), median {np.median(r):.3e}"
+
+
+def row_order():
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as ref_configs
+    from repro.models import build as ref_build
+    from repro.models.losses import chunked_softmax_cross_entropy as ref_ce
+    from repro_torch import bridge, configs
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models import build
+    from repro_torch.train import optim, tree
+    from repro_torch.train.steps import make_train_step
+
+    torch.set_num_threads(8)
+    seq, batch_n, chunk = 512, 2, 256
+    for layers in (8, 12):
+        cfg = dataclasses.replace(configs.get(ARCH), n_layers=layers,
+                                  dtype="float32")
+        params = build(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+        dh = cfg.d_model // cfg.n_heads
+        for name, block in params["periods"].items():
+            if name.endswith("_s"):
+                block["r_zifo"].mul_((4 / dh) ** 0.5)
+        paths = tree.flatten_with_paths(params)[1]
+        batch = pipeline_for(cfg, seq, batch_n, seed=0).batch(0, "cpu")
+        rows = [{k: v[i:i + 1] for k, v in batch.items()}
+                for i in range(batch_n)]
+        print(f"{ARCH}: {layers} of {configs.get(ARCH).n_layers} layers, "
+              f"full width, f32, {batch_n} x {seq} tokens; first-step "
+              f"gradient of the whole batch against the mean of its rows' "
+              f"gradients", flush=True)
+
+        step = make_train_step(build(cfg), optim.AdamW(lr=lambda s: 1e-3),
+                               loss_chunk=chunk)
+
+        def port_grads(b):
+            return [bridge.to_numpy(g)
+                    for g in tree.leaves(step.loss_and_grads(params, b)[2])]
+
+        whole = port_grads(batch)
+        parts = [port_grads(b) for b in rows]
+        print("  port:      " + order_ratios(
+            whole, [sum(g) / batch_n for g in zip(*parts)], paths),
+            flush=True)
+
+        rapi = ref_build(dataclasses.replace(ref_configs.get(ARCH),
+                                             n_layers=layers,
+                                             dtype="float32"))
+        ref_params = jax.tree.map(jnp.asarray, bridge.to_numpy(params))
+
+        def ref_loss(p, toks, labels):
+            hidden, aux = rapi.forward(p, tokens=toks, return_hidden=True)
+            return ref_ce(hidden, rapi.logits_fn(p), labels, None,
+                          chunk=chunk) + 0.001 * aux
+
+        grad = jax.jit(jax.grad(ref_loss))
+
+        def ref_grads(b):
+            g = grad(ref_params, jnp.asarray(b["tokens"].numpy()),
+                     jnp.asarray(b["labels"].numpy()))
+            return [np.asarray(x, np.float32) for x in jax.tree.leaves(g)]
+
+        whole = ref_grads(batch)
+        parts = [ref_grads(b) for b in rows]
+        print("  reference: " + order_ratios(
+            whole, [sum(g) / batch_n for g in zip(*parts)], paths),
+            flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if "--row-order" in sys.argv[1:]:
+        row_order()
+    else:
+        main()

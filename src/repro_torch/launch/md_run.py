@@ -19,7 +19,11 @@ in this process (``LocalComm``). Two engines:
   --engine outer  (default) one pass over the ranks per chunk of segments:
                   migration at each segment's start, then the steps; one
                   host fetch (thermo + overflow flags) per chunk, and a
-                  chunk replayed with escalated capacities on overflow.
+                  chunk replayed with escalated capacities on overflow. With
+                  --local-ranks on the card a segment is captured once per
+                  length as a CUDA graph and replayed (an escalation builds
+                  a new program and captures again); the last line counts
+                  the captures, replays and capture seconds.
   --engine scan   one pass per rebuild segment, migration between segments.
 
 Fewer than 2 bricks degenerate to the single-process driver
@@ -218,6 +222,7 @@ def run(args, n_ranks: int, under_torchrun: bool, dev: torch.device) -> None:
 
         spec_run = spec
         program = build(spec_run)
+        programs = []              # every one, escalations included
         state = program.prime(params, domain.shard_state(host, comm, dev),
                               boxd)
         ens = program.init_ensemble_state(dev)
@@ -255,12 +260,18 @@ def run(args, n_ranks: int, under_torchrun: bool, dev: torch.device) -> None:
                         box_now=box_now)
                     if r_ovf > 0:
                         raise RuntimeError(f"repartition overflow {r_ovf}")
+                    programs.append(program)
                     program = build(spec_run)
                     state = program.prime(
                         params, domain.shard_state(whole, comm, dev), boxd)
             show(thermo, base, n_segs * seg_len)
             base += n_segs * seg_len
+        programs.append(program)
+        captures = (f"; graph captures {sum(p.captures for p in programs)}, "
+                    f"replays {sum(p.replays for p in programs)}, capture "
+                    f"{sum(p.capture_s for p in programs):.3f} s")
     else:
+        captures = ""
         step = domain.make_distributed_md_step(
             cfg, spec, comm, masses_t, args.dt, impl=args.impl,
             decomp="atoms", neighbor="cells", potential=potential,
@@ -289,7 +300,8 @@ def run(args, n_ranks: int, under_torchrun: bool, dev: torch.device) -> None:
     dt_wall = time.perf_counter() - t0
     if barostat is not None:
         say(f"final box {np.round(boxd.cpu().numpy(), 3)} A")
-    say(f"{dt_wall / args.steps * 1e6 / n:.2f} us/step/atom wall (this host)")
+    say(f"{dt_wall / args.steps * 1e6 / n:.2f} us/step/atom wall (this "
+        f"host){captures}")
 
 
 if __name__ == "__main__":

@@ -25,7 +25,12 @@ Three implementations run the same per-rank code:
              its own stream (``record_stream``), so the allocator keeps it
              until the receiver is done. A rank that raises breaks the
              barrier, the others stop at their next collective, and ``run``
-             raises the first rank's exception.
+             raises the first rank's exception. ``run`` may be called while
+             the caller's stream is being captured as a CUDA graph: every
+             rank stream forks from that stream and joins it again, so the
+             ranks' work, and the mailbox's events as edges between their
+             streams, land in the one graph; the barrier then runs at
+             capture time only (``md/domain.StaticSegment``).
   DistComm   one process per rank over ``torch.distributed``: NCCL with one
              card per rank, gloo on the CPU. ``ppermute`` is one
              ``batch_isend_irecv`` per call, waited on before it returns, with
@@ -262,8 +267,12 @@ class LocalComm:
         box = _Mailbox(n, self.timeout)
         results: List[Any] = [None] * n
         errors: List[Optional[BaseException]] = [None] * n
-        main = (torch.cuda.current_stream(self.device)
-                if self._streams is not None else None)
+        main = fork = None
+        if self._streams is not None:
+            # every rank stream waits on this one event of the caller's
+            # stream: under capture, that pulls the rank streams into it
+            main = torch.cuda.current_stream(self.device)
+            fork = main.record_event()
 
         def body(r: int) -> None:
             rank = _LocalRank(self, box, r)
@@ -273,7 +282,7 @@ class LocalComm:
                     return
                 stream = self._streams[r]
                 with torch.cuda.device(self.device), torch.cuda.stream(stream):
-                    stream.wait_stream(main)
+                    stream.wait_event(fork)
                     out = fn(rank)
                     for t in _tensors_of(out):   # the caller reads on `main`
                         if t.is_cuda:
@@ -289,7 +298,7 @@ class LocalComm:
             t.start()
         for t in threads:
             t.join(timeout=2 * self.timeout)
-        if main is not None:
+        if main is not None:             # the join: every stream back
             for s in self._streams:
                 main.wait_stream(s)
         hung = [t.name for t in threads if t.is_alive()]

@@ -49,12 +49,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import DPConfig
+from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 from repro_torch.md import api, comm as comm_mod, integrator, neighbors, stepper
 from repro_torch.md import slab_cells
 from repro_torch.md.topology import Topology
@@ -314,19 +316,23 @@ def _adopt_gens(dst_tree, src_tree) -> None:
         d.set_state(s.get_state())
 
 
-def _on_bricks(comm, fn: Callable, state: SlabState, ens, baro):
+def _on_bricks(comm, fn: Callable, state: SlabState, ens, baro,
+               trees: Optional[Dict[int, Tuple[Any, Any]]] = None):
     """``fn(rank, brick_state, brick_ens, baro)`` on every rank held here,
     under ``torch.no_grad()``; returns the result of each held brick's
     lowest model shard, in ``comm.bricks`` order. Every rank gets its own
-    copy of the generators; the callers' generators take the states of the
-    returned ones."""
+    copy of the generators (the callers' generators take the states of the
+    returned ones), or, with ``trees``, the ensemble and barostat states
+    ``trees[rank]``."""
     bricks = list(comm.bricks)
 
     def per_rank(rank):
         i = bricks.index(rank.spatial_index)
         brick = SlabState(*(None if x is None else x[i] for x in state))
+        ens_r, baro_r = (trees[rank.rank] if trees is not None
+                         else (_clone_gens(ens[i]), _clone_gens(baro)))
         with torch.no_grad():
-            return fn(rank, brick, _clone_gens(ens[i]), _clone_gens(baro))
+            return fn(rank, brick, ens_r, baro_r)
 
     results = comm.run(per_rank)
     lead: Dict[int, Any] = {}
@@ -1067,13 +1073,23 @@ class OuterMDProgram:
     over the ranks per chunk of segments.
 
     ``run(state, params, n_segments, seg_len, ens, box, baro)``: every rank
-    loops over the segments, each one the staged migration sweeps then
+    runs the segments, each one the staged migration sweeps then
     ``seg_len`` steps (halo + rebuild + force + ensemble each step). The
     ensemble state, the box and the barostat state ride through every step.
     Thermo comes back stacked ``(n_segments, seg_len)`` plus
     ``mig_overflow`` ``(n_segments, ndim)``, checked by
-    :func:`check_segment_thermo` once per chunk. The loop is eager; capturing
-    a distributed segment as a CUDA graph is later work.
+    :func:`check_segment_thermo` once per chunk.
+
+    On a :class:`~repro_torch.md.comm.LocalComm` on the card, one segment
+    is captured as a CUDA graph once per ``seg_len`` (a
+    :class:`StaticSegment`) and :meth:`run` replays it once per segment, as
+    the reference's whole-trajectory program is one dispatch: the host
+    issues a replay per segment and reads nothing. A failed capture raises.
+    An escalation builds a new program, and with it new graphs. Elsewhere
+    (the CPU, ``DistComm`` with one process per rank, ``DryRunComm``), and
+    with ``capture=False`` (the oracle a capture is held against), every
+    rank loops over the segments eagerly in one pass. ``captures``,
+    ``replays`` and ``capture_s`` count the graphs' work.
     """
 
     def __init__(self, cfg: Optional[DPConfig], spec: DomainSpec, comm,
@@ -1082,7 +1098,8 @@ class OuterMDProgram:
                  neighbor: str = "cells",
                  potential: Optional[api.Potential] = None,
                  ensemble: Optional[api.Ensemble] = None,
-                 barostat: Optional[api.Barostat] = None):
+                 barostat: Optional[api.Barostat] = None,
+                 capture: bool = True):
         self.step = make_distributed_md_step(
             cfg, spec, comm, masses, dt_fs, impl=impl, decomp=decomp,
             neighbor=neighbor, potential=potential, ensemble=ensemble,
@@ -1091,6 +1108,11 @@ class OuterMDProgram:
         self.barostat = barostat
         self.spec = spec
         self.comm = comm
+        self.capture = capture
+        self._graphs: Dict[int, StaticSegment] = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
 
     def init_ensemble_state(self, device) -> Tuple:
         return init_ensemble_state(self.ensemble, self.comm, device)
@@ -1105,10 +1127,16 @@ class OuterMDProgram:
 
     def run(self, state: SlabState, params, n_segments: int, seg_len: int,
             ens=(), box=None, baro=()):
-        """Returns ``(state, ens, box, baro, thermo)``."""
+        """Returns ``(state, ens, box, baro, thermo)``. On the card the
+        returned state and box are the graph's static buffers, which the
+        next replay overwrites: copy them to keep them."""
         if box is None:
             box = stepper.pack_box(self.spec.box, state.pos.device)
         ens = _norm_ens(ens, self.comm)
+        if (self.capture and isinstance(self.comm, comm_mod.LocalComm)
+                and state.pos.is_cuda):
+            return self._replay(state, params, n_segments, seg_len, ens, box,
+                                baro)
         spec, step = self.spec, self.step.local.step
 
         def per_brick(rank, brick, ens_b, baro_r):
@@ -1119,6 +1147,124 @@ class OuterMDProgram:
         (state, ens, box, baro), th = self.step._finish(per_brick, state,
                                                         ens, baro)
         return state, ens, box, baro, th
+
+    def _replay(self, state, params, n_segments, seg_len, ens, box, baro):
+        seg = self._graphs.get(seg_len)
+        if seg is not None and seg.params is not params:
+            raise ValueError("the captured segment was recorded for other "
+                             "params")
+        if seg is None:
+            t0 = time.perf_counter()
+            seg = StaticSegment(self, params, (state, ens, box, baro),
+                                seg_len)
+            # the segments of one program share one memory pool
+            seg.capture(next((g.graph.pool()
+                              for g in self._graphs.values()), None))
+            self._graphs[seg_len] = seg
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
+        seg.load(state, ens, box, baro)
+        ths = []
+        for _ in range(n_segments):
+            ths.append(seg.replay())
+            self.replays += 1
+        seg.store_gens(ens, baro)
+        return (seg.state, ens, seg.box, baro,
+                {k: torch.cat([t[k] for t in ths]) for k in ths[0]})
+
+
+class StaticSegment:
+    """One segment of :meth:`OuterMDProgram.run` on every rank of a
+    :class:`~repro_torch.md.comm.LocalComm` over static carry buffers:
+    the staged migration sweeps then ``seg_len`` steps from ``state`` (the
+    stacked bricks) and ``box``, with the new bricks and box written back
+    into them, so n calls run n segments in a row.
+
+    Each rank draws from generators of its own that live as long as the
+    segment (``trees``: rank -> (ensemble state, barostat state)), since a
+    graph draws from the generator objects it was recorded with; the model
+    shards of one brick start from the same states and stay equal.
+    :meth:`load` sets them to the caller's states and :meth:`store_gens`
+    gives the caller those of each brick's lowest model shard.
+
+    :meth:`capture` (the card) records the segment as a CUDA graph after
+    a one-step warm-up on copies; :meth:`replay` then replays it, and
+    otherwise runs the same function eagerly. Ensemble and barostat states
+    carry their generators only, as in the eager program.
+    """
+
+    def __init__(self, program: OuterMDProgram, params, carry, seg_len: int):
+        state, ens, box, baro = carry
+        # the program's parts, not the program: it holds its segments, and
+        # a cycle would keep a dropped program's graphs and pool alive
+        comm = self.comm = program.comm
+        self._step, self._spec = program.step.local.step, program.spec
+        self.params, self.seg_len = params, seg_len
+        self.state = SlabState(*(None if x is None else x.clone()
+                                 for x in state))
+        self.box = box.clone()
+        self.trees = {r: (_clone_gens(ens[r // comm.n_model]),
+                          _clone_gens(baro)) for r in range(comm.n_ranks)}
+        self.graph = None
+
+    def _segment(self, state: SlabState, box, seg_len: int):
+        """One segment from ``(state, box)``, written back into them; the
+        thermo stacked ``(1, seg_len)``."""
+        step, spec, params = self._step, self._spec, self.params
+
+        def per_brick(rank, brick, ens_r, baro_r):
+            return run_outer_brick(rank, step, spec, params,
+                                   (brick, ens_r, box, baro_r), 1, seg_len)
+
+        outs = _on_bricks(self.comm, per_brick, state, None, None,
+                          self.trees)
+        new = _stack_states([o[0][0] for o in outs])
+        for dst, src in zip(state, new):
+            if dst is not None:
+                dst.copy_(src)
+        box.copy_(outs[0][0][2])
+        return outs[0][1]
+
+    def capture(self, pool=None) -> None:
+        """Record the segment as a CUDA graph (``capture_error_mode``
+        "thread_local": the rank threads and autograd's device thread add
+        work to the graph beside the capturing thread)."""
+        warm = stepper.snapshot((self.state, self.box)).carry
+        self.graph, self.thermo, self.launches = stepper.capture_graph(
+            lambda: self._segment(self.state, self.box, self.seg_len),
+            lambda: self._segment(*warm, 1),
+            stepper.generators_of(self.trees), pool, "thread_local")
+
+    def load(self, state: SlabState, ens, box, baro) -> None:
+        """Copy the carry into the static buffers (no-op for the buffers
+        themselves) and every rank's generators to the caller's states."""
+        if state.pos is not self.state.pos:
+            for dst, src in zip(self.state, state):
+                if dst is not None:
+                    dst.copy_(src)
+        if box is not self.box:
+            self.box.copy_(box)
+        n_model = self.comm.n_model
+        for r, (ens_r, baro_r) in self.trees.items():
+            _adopt_gens(ens_r, ens[r // n_model])
+            _adopt_gens(baro_r, baro)
+
+    def store_gens(self, ens, baro) -> None:
+        """The caller's generators take the states of each brick's lowest
+        model shard (the barostat's: the first brick's)."""
+        n_model = self.comm.n_model
+        for i, e in enumerate(ens):
+            _adopt_gens(e, self.trees[i * n_model][0])
+        _adopt_gens(baro, self.trees[0][1])
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """One segment: the graph's replay (its thermo copied out of the
+        graph's pool), or the segment run eagerly before :meth:`capture`."""
+        if self.graph is None:
+            return self._segment(self.state, self.box, self.seg_len)
+        self.graph.replay()
+        dp_fused_ops.count_replay(*self.launches)
+        return {k: v.clone() for k, v in self.thermo.items()}
 
 
 def run_outer_brick(rank, step, spec: DomainSpec, params, carry,

@@ -217,6 +217,10 @@ class MDCarry(NamedTuple):
     baro: Any = ()
 
 
+#: the reference's legacy name for the step carry
+VVCarry = MDCarry
+
+
 def make_md_step(potential: api.Potential, ensemble: api.Ensemble,
                  barostat: Optional[api.Barostat] = None) -> Callable:
     """One kick-drift-(force)-kick step of ``ensemble`` under ``potential``.
@@ -347,6 +351,39 @@ def _same_inputs(a, b) -> bool:
         for x, y in zip(a, b))
 
 
+def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
+                  gens: List[torch.Generator], pool=None,
+                  error_mode: str = "global"):
+    """Record ``fn()`` as a CUDA graph; returns ``(graph, fn's output,
+    (fwd, bwd) dp_fused launches the graph recorded)``.
+
+    ``warm()`` runs first on a side stream, as capture requires (its kernels
+    really run and count as launches), and ``gens`` are set back to their
+    states afterwards. Each CUDA generator in ``gens`` is registered with the
+    graph: each replay then draws fresh noise from the generator's current
+    offset, and a restored state draws the same again. ``error_mode`` is
+    ``torch.cuda.graph``'s ``capture_error_mode``.
+    """
+    states = [g.get_state() for g in gens]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream().wait_stream(side)
+    for gen, state in zip(gens, states):
+        gen.set_state(state)
+
+    graph = torch.cuda.CUDAGraph()
+    for gen in gens:
+        if gen.device.type == "cuda":
+            graph.register_generator_state(gen)
+    f0, b0 = dp_fused_ops.fwd_captured, dp_fused_ops.bwd_captured
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
+        out = fn()
+    return graph, out, (dp_fused_ops.fwd_captured - f0,
+                        dp_fused_ops.bwd_captured - b0)
+
+
 class _CapturedSegment:
     """One segment captured as a CUDA graph over static carry buffers.
 
@@ -360,31 +397,17 @@ class _CapturedSegment:
                  aux: Tuple[Any, ...], pool=None):
         self.aux = aux
         self.static = snapshot(carry).carry
-        gens = generators_of(carry)
-        # warm-up on a side stream, as capture requires: one step of the
-        # segment on copies, with the generators set back afterwards. Its
-        # kernels really run and count as launches.
-        warm = snapshot(carry)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            seg_fn(warm.carry, 1, *aux)
-        torch.cuda.current_stream().wait_stream(side)
-        restore(warm)
+        # the warm-up: one step of the segment on copies
+        warm = snapshot(carry).carry
 
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in gens:
-            if gen.device.type == "cuda":
-                # each replay then draws fresh noise from the generator's
-                # current offset, and a restored state draws the same again
-                self.graph.register_generator_state(gen)
-        f0, b0 = dp_fused_ops.fwd_captured, dp_fused_ops.bwd_captured
-        with torch.cuda.graph(self.graph, pool=pool):
+        def record():
             out, th = seg_fn(self.static, seg_len, *aux)
             self._write_back(out)
-        self.thermo = th
-        self.launches = (dp_fused_ops.fwd_captured - f0,
-                         dp_fused_ops.bwd_captured - b0)
+            return th
+
+        self.graph, self.thermo, self.launches = capture_graph(
+            record, lambda: seg_fn(warm, 1, *aux), generators_of(carry),
+            pool)
 
     def _write_back(self, out: OuterCarry) -> None:
         src, dst = [], []

@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import dp_model as jax_dp
-from repro.md import api as jax_api
-from repro.md import lattice as jax_lattice
-from repro.md import neighbors as jax_neighbors
-from repro_torch.md import api, driver, lattice
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.md import api as jax_api  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro.md import neighbors as jax_neighbors  # noqa: E402
+from repro_torch.md import api, driver, lattice  # noqa: E402
 
 # One torch thread: the suite's pytest workers already occupy the cores.
 torch.set_num_threads(1)

@@ -9,18 +9,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import dp_model as jax_dp
-from repro.core.types import DPConfig as JaxDPConfig
-from repro.train import checkpoint as jax_ckpt
-from repro.train import optim as jax_optim
-from repro.train.steps import TrainState as JaxTrainState
-from repro_torch import bridge
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.train import checkpoint, dp_trainer, tree
-from repro_torch.train.steps import TrainState
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.core.types import DPConfig as JaxDPConfig  # noqa: E402
+from repro.train import checkpoint as jax_ckpt  # noqa: E402
+from repro.train import optim as jax_optim  # noqa: E402
+from repro.train.steps import TrainState as JaxTrainState  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.train import checkpoint, dp_trainer, tree  # noqa: E402
+from repro_torch.train.steps import TrainState  # noqa: E402
 
 # One torch thread: the suite's pytest workers already occupy the cores.
 torch.set_num_threads(1)

@@ -11,9 +11,9 @@ only the port's dependencies:
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.dp_fused import ops, ref
+from repro_torch.kernels.dp_fused import ops, ref  # noqa: E402
 
 LOWER, UPPER = -1.0, 9.0
 
@@ -381,6 +381,155 @@ def test_local_comm_bricks_on_the_card_match_single_process(dev):
         for i in np.nonzero(mask[s])[0]:
             j = int(np.argmin(np.sum((pos - p0[s, i]) ** 2, 1)))
             assert np.abs(force[s, i] - f_ref[j]).max() < tol
+
+
+def _brick_program(dev, capture, potential=None, ensemble=None, halo=96,
+                   seed=0):
+    """fcc_copper(4,4,3) jittered, in 2x2 bricks x 2 model shards (slot
+    split, brick cell list) on the card: the outer program, its params, the
+    bricks (velocities at 330 K, not primed), the box, and ``make(spec,
+    capture)``, which builds the same program at another spec."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import DPConfig
+    from repro_torch.md import comm, domain, integrator, lattice
+
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(64,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(32, 32, 32))
+    params = {} if potential is not None else dp_model.tabulate_model(
+        dp_model.init_dp_params(torch.Generator().manual_seed(0), cfg,
+                                device=dev), cfg, "cheb")
+    pos, typ, box = lattice.fcc_copper(4, 4, 3)
+    rng = np.random.default_rng(seed)
+    pos = np.mod(pos + rng.normal(0, 0.02, pos.shape), box).astype(np.float32)
+    masses = torch.full((len(pos),), 63.546)
+    vel = integrator.init_velocities(torch.Generator().manual_seed(seed),
+                                     masses, 330.0).numpy()
+    spec = domain.DomainSpec.for_topology(tuple(box), (2, 2), 96, halo, 4.5)
+    state, _ = domain.partition_atoms(pos, vel, typ, spec)
+    lc = comm.LocalComm(4, 2, device=dev)
+
+    def make(spec, capture):
+        return domain.make_outer_md_program(
+            None if potential is not None else cfg, spec, lc, (63.546,), 1.0,
+            impl="cheb_pallas", decomp="slots", neighbor="cells",
+            potential=potential, ensemble=ensemble, capture=capture)
+
+    boxt = torch.tensor(np.asarray(box, np.float32), device=dev)
+    return (make(spec, capture), params, domain.shard_state(state, lc, dev),
+            boxt, make)
+
+
+def _min_image_max(a, b, boxt):
+    d = a - b
+    return float((d - boxt * torch.round(d / boxt)).abs().max())
+
+
+@pytest.mark.cuda
+def test_captured_outer_program_matches_the_eager_one(dev):
+    """Eight thread-ranks on the card: the outer program with each segment
+    length captured once as a CUDA graph (2 x 5 steps, then 3) against the
+    same program run eagerly: positions by minimum image within 1e-5 A,
+    thermo at rtol 1e-5 (the atomics sum in another order from run to run).
+    The graphs record 8 ranks' launches and each replay counts them."""
+    from repro_torch.md import domain, stepper
+
+    runs = {}
+    for capture in (False, True):
+        prog, params, st, boxt, _ = _brick_program(dev, capture)
+        st = prog.prime(params, st, boxt)
+        fw0, bw0 = ops.fwd_launches, ops.bwd_launches
+        ths = []
+        for n_segs, seg_len in ((2, 5), (1, 3)):
+            st, _, _, _, th = prog.run(st, params, n_segs, seg_len, (), boxt)
+            ths.append(stepper.fetch_thermo(th))
+            domain.check_segment_thermo(ths[-1])
+        torch.cuda.synchronize()
+        runs[capture] = (st.pos.clone(), ths, prog)
+        launches = (ops.fwd_launches - fw0, ops.bwd_launches - bw0)
+        want = 8 * (13 + 2 * capture)          # + a warm-up step a capture
+        assert launches == (want, want), launches
+    (p0, th0, _), (p1, th1, prog) = runs[False], runs[True]
+    assert (prog.captures, prog.replays) == (2, 3)
+    assert sorted(prog._graphs) == [3, 5]
+    assert _min_image_max(p1, p0, boxt) < 1e-5
+    for a, b in zip(th1, th0):
+        assert a["pe"].shape == b["pe"].shape
+        for k in ("pe", "ke", "press"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+        np.testing.assert_array_equal(a["n_atoms"], b["n_atoms"])
+
+
+@pytest.mark.cuda
+def test_captured_langevin_bricks_replay_from_a_restored_state(dev):
+    """Langevin bricks in a graph: each replay draws fresh noise from every
+    rank's own generator and the callers' generators advance; from a
+    restored snapshot the replay draws the same noise again (velocities
+    within the atomics' rounding, generator states bit for bit)."""
+    from repro_torch.md import api, stepper
+
+    prog, params, st, boxt, _ = _brick_program(
+        dev, True, potential=api.LJPotential(sel=(64,), rcut_lj=4.0),
+        ensemble=api.NVTLangevin(friction=0.05, seed=3))
+    ens = prog.init_ensemble_state(dev)
+    start = stepper.snapshot((prog.prime(params, st, boxt), ens))
+
+    def run():
+        st, ens = stepper.restore(start)
+        st, ens, _, _, _ = prog.run(st, params, 1, 4, ens, boxt)
+        return st.vel.clone(), [e["gen"].get_state() for e in ens]
+
+    v1, g1 = run()
+    st_fresh, _, _, _, _ = prog.run(start.carry[0], params, 1, 4, ens, boxt)
+    v_fresh = st_fresh.vel.clone()
+    v2, g2 = run()
+    assert (prog.captures, prog.replays) == (1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert len({bytes(g.cpu().numpy()) for g in g1}) == 4
+    assert float((v1 - v2).abs().max()) < 1e-5
+    assert float((v_fresh - v1).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_an_overflow_escalation_builds_a_new_capture(dev, capsys):
+    """A halo capacity too small for the bricks: the captured run's flags
+    fail the check, the escalated spec's new program captures anew and its
+    run passes, equal to the eager run at that spec. md_run on the card
+    prints its captures and replays."""
+    from repro_torch.launch import md_run
+    from repro_torch.md import domain, stepper
+
+    prog, params, st0, boxt, make = _brick_program(dev, True, halo=8)
+    comm = prog.comm
+    policy, progs = stepper.EscalationPolicy(), []
+    for _ in range(policy.max_attempts):
+        state = prog.prime(params, st0, boxt)
+        _, _, _, _, th = prog.run(state, params, 1, 4, (), boxt)
+        progs.append(prog)
+        try:
+            domain.check_segment_thermo(stepper.fetch_thermo(th))
+            break
+        except RuntimeError as e:
+            assert "halo_overflow" in str(e)
+        # as md_run: escalate, re-partition, a new program
+        spec = domain.escalate_capacities(prog.spec, policy, n_model=2)
+        whole, _ = domain.repartition_state(
+            domain.gather_state(st0, comm), spec)
+        st0 = domain.shard_state(whole, comm, dev)
+        prog = make(spec, True)
+    assert len(progs) >= 2
+    assert all((p.captures, p.replays) == (1, 1) for p in progs)
+    assert len({id(p._graphs[4].graph) for p in progs}) == len(progs)
+    eager = make(prog.spec, False)
+    _, _, _, _, th_e = eager.run(eager.prime(params, st0, boxt), params, 1,
+                                 4, (), boxt)
+    np.testing.assert_allclose(th["pe"].cpu().numpy(),
+                               th_e["pe"].cpu().numpy(), rtol=1e-5)
+
+    md_run.main(["--local-ranks", "4", "--nx", "6", "--steps", "6",
+                 "--rebuild-every", "3"])
+    out = capsys.readouterr().out
+    assert "atoms 216" in out and "graph captures 1, replays 2" in out
 
 
 # ------------------------------------------------------------- DP training

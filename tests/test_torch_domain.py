@@ -27,25 +27,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import DPConfig as JaxDPConfig
-from repro.core import dp_energy_forces as jax_energy_forces
-from repro.core import init_dp_params as jax_init_params
-from repro.md import api as jax_api
-from repro.md import domain as jax_domain
-from repro.md import driver as jax_driver
-from repro.md import integrator as jax_integrator
-from repro.md import lattice as jax_lattice
-from repro.md import neighbors as jax_neighbors
-from repro.md import slab_cells as jax_slab_cells
-from repro_torch import bridge
-from repro_torch.core.types import DPConfig
-from repro_torch.md import api, comm, domain, driver, integrator, \
-    neighbors, slab_cells, stepper
-from repro_torch.md.topology import Topology
+from repro.core import DPConfig as JaxDPConfig  # noqa: E402
+from repro.core import dp_energy_forces as jax_energy_forces  # noqa: E402
+from repro.core import init_dp_params as jax_init_params  # noqa: E402
+from repro.md import api as jax_api  # noqa: E402
+from repro.md import domain as jax_domain  # noqa: E402
+from repro.md import driver as jax_driver  # noqa: E402
+from repro.md import integrator as jax_integrator  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro.md import neighbors as jax_neighbors  # noqa: E402
+from repro.md import slab_cells as jax_slab_cells  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.md import (  # noqa: E402
+    api, comm, domain, driver, integrator, neighbors, slab_cells, stepper)
+from repro_torch.md.topology import Topology  # noqa: E402
 
-import _torch_dist_worker
+import _torch_dist_worker  # noqa: E402
 
 torch.set_num_threads(1)
 

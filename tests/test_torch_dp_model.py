@@ -12,14 +12,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import descriptor as jax_descriptor
-from repro.core import dp_model as jax_dp
-from repro.md import lattice as jax_lattice
-from repro.md import neighbors as jax_neighbors
-from repro_torch import bridge
-from repro_torch.core import descriptor, dp_model, layers
+from repro.core import descriptor as jax_descriptor  # noqa: E402
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro.md import neighbors as jax_neighbors  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import descriptor, dp_model, layers  # noqa: E402
 
 # One torch thread: the suite's pytest workers already occupy the cores, and
 # intra-op threads on top of them stall (see test_torch_md.py).

@@ -17,15 +17,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import dp_model as jax_dp
-from repro.md import api as jax_api
-from repro.md import integrator as jax_integrator
-from repro.md import lattice as jax_lattice
-from repro_torch import bridge
-from repro_torch.md import api, driver, integrator, lattice, neighbors, \
-    stepper
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.md import api as jax_api  # noqa: E402
+from repro.md import integrator as jax_integrator  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.md import (  # noqa: E402
+    api, driver, integrator, lattice, neighbors, stepper)
 
 # One torch thread: the suite's pytest workers already occupy the cores.
 torch.set_num_threads(1)

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.kernels.dp_fused import ops as jax_ops
-from repro.kernels.dp_fused import ref as jax_ref
-from repro_torch.kernels.dp_fused import ops, ref
+from repro.kernels.dp_fused import ops as jax_ops  # noqa: E402
+from repro.kernels.dp_fused import ref as jax_ref  # noqa: E402
+from repro_torch.kernels.dp_fused import ops, ref  # noqa: E402
 
 # One torch thread: the suite's pytest workers already occupy the cores, and
 # intra-op threads on top of them stall (see test_torch_md.py).

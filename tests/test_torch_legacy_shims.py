@@ -1,12 +1,14 @@
 """The reference's legacy DP + NVE names in the port's stepper: each shim is
-the engine it names, bit for bit, over two segments on the CPU."""
+the engine it names, bit for bit, over two segments on the CPU, and
+``VVCarry`` is the step carry."""
 
 import numpy as np
-import torch
+import pytest
+torch = pytest.importorskip("torch")
 
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.md import api, lattice, neighbors, stepper
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.md import api, lattice, neighbors, stepper  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -40,6 +42,16 @@ def _equal(a, b):
 
 def test_scan_segment_is_run_steps():
     assert stepper.scan_segment is stepper.run_steps
+
+
+def test_vv_carry_is_the_step_carry():
+    """The reference's legacy carry name, with the step carry's fields and
+    defaults."""
+    assert stepper.VVCarry is stepper.MDCarry
+    z = torch.zeros(2, 3)
+    c = stepper.VVCarry(z, z + 1.0, z)
+    assert c._fields == ("pos", "vel", "force", "ens", "box", "baro")
+    assert (c.ens, c.box, c.baro) == ((), None, ())
 
 
 def test_vv_step_and_segment_engine_equal_the_dp_nve_engine():

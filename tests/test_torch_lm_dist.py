@@ -51,20 +51,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-import _torch_lm_dist_worker as worker
-from _torch_lm import ref_jit
-from repro import configs as ref_configs
-from repro.models import build as ref_build
-from repro.train import checkpoint as ref_checkpoint
-from repro.train import optim as ref_optim
-from repro.train.steps import TrainState as RefTrainState
-from repro.train.steps import make_train_step as ref_make_train_step
-from repro_torch import bridge, configs
-from repro_torch.models import build
-from repro_torch.train import tree
-from repro_torch.train.steps import init_train_state, make_train_step
+import _torch_lm_dist_worker as worker  # noqa: E402
+from _torch_lm import ref_jit  # noqa: E402
+from repro import configs as ref_configs  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.train import checkpoint as ref_checkpoint  # noqa: E402
+from repro.train import optim as ref_optim  # noqa: E402
+from repro.train.steps import TrainState as RefTrainState  # noqa: E402
+from repro.train.steps import make_train_step as ref_make_train_step  # noqa: E402
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.train import tree  # noqa: E402
+from repro_torch.train.steps import init_train_state, make_train_step  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -16,18 +16,18 @@ import dataclasses
 import os
 
 import pytest
-import torch
-import torch.distributed as dist
-from torch._subclasses.fake_tensor import FakeTensorMode
+torch = pytest.importorskip("torch")
+import torch.distributed as dist  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
-from repro_torch import configs
-from repro_torch.analysis import op_cost
-from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import RankGrid
-from repro_torch.models import build
-from repro_torch.models.lm_types import ASSIGNED_SHAPES, ShapeSpec
-from repro_torch.sharding import ctx, plans, state
-from repro_torch.train import tree
+from repro_torch import configs  # noqa: E402
+from repro_torch.analysis import op_cost  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import RankGrid  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.lm_types import ASSIGNED_SHAPES, ShapeSpec  # noqa: E402
+from repro_torch.sharding import ctx, plans, state  # noqa: E402
+from repro_torch.train import tree  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -16,21 +16,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro import configs as ref_configs
-from repro.models import attention as ref_attn
-from repro.models import build as ref_build
-from repro.models import common as ref_common
-from repro.models import encdec as ref_encdec
-from repro.models import griffin as ref_griffin
-from repro.models import moe as ref_moe
-from repro.models import xlstm as ref_xlstm
-from repro_torch import bridge, configs
-from repro_torch.core import types as port_types
-from repro_torch.models import attention, common, encdec, griffin, moe, xlstm
+from repro import configs as ref_configs  # noqa: E402
+from repro.models import attention as ref_attn  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.models import common as ref_common  # noqa: E402
+from repro.models import encdec as ref_encdec  # noqa: E402
+from repro.models import griffin as ref_griffin  # noqa: E402
+from repro.models import moe as ref_moe  # noqa: E402
+from repro.models import xlstm as ref_xlstm  # noqa: E402
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.core import types as port_types  # noqa: E402
+from repro_torch.models import attention, common, encdec, griffin, moe, xlstm  # noqa: E402
 
-from _torch_lm import (ARCHS, apis, cfgs, close, close_trees, inputs,
+from _torch_lm import (ARCHS, apis, cfgs, close, close_trees, inputs,  # noqa: E402
                        port_params, ref_params)
 
 # One torch thread: the suite's pytest workers already occupy the cores.

@@ -13,13 +13,13 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch import configs
-from repro_torch.launch import serve_lm
-from repro_torch.models import attention, build, encdec
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
+from repro_torch.models import attention, build, encdec  # noqa: E402
 
-from _torch_lm import BF16, F32, close, close_bf16, f32, port_params
+from _torch_lm import BF16, F32, close, close_bf16, f32, port_params  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -5,9 +5,9 @@ caches, and the serving step (``tests/_torch_lm.py`` holds the bodies and
 tolerances)."""
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from _torch_lm import (BF16, F32, check_forward, check_prefill_decode,
+from _torch_lm import (BF16, F32, check_forward, check_prefill_decode,  # noqa: E402
                        check_serve_step)
 
 torch.set_num_threads(1)

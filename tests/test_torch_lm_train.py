@@ -16,27 +16,27 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro import configs as ref_configs
-from repro.data.tokens import TokenPipeline as RefTokenPipeline
-from repro.data.tokens import pipeline_for as ref_pipeline_for
-from repro.models import attention as ref_attention
-from repro.models import build as ref_build
-from repro.models import losses as ref_losses
-from repro.models import xlstm as ref_xlstm
-from repro.train import checkpoint as ref_checkpoint
-from repro.train import optim as ref_optim
-from repro.train.steps import init_train_state as ref_init_train_state
-from repro.train.steps import make_train_step as ref_make_train_step
-from repro_torch import bridge, configs
-from repro_torch.data import TokenPipeline, pipeline_for
-from repro_torch.launch import train as train_mod
-from repro_torch.models import attention, build, losses, xlstm
-from repro_torch.train import checkpoint, optim, tree
-from repro_torch.train.steps import TrainState, make_train_step
+from repro import configs as ref_configs  # noqa: E402
+from repro.data.tokens import TokenPipeline as RefTokenPipeline  # noqa: E402
+from repro.data.tokens import pipeline_for as ref_pipeline_for  # noqa: E402
+from repro.models import attention as ref_attention  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.models import losses as ref_losses  # noqa: E402
+from repro.models import xlstm as ref_xlstm  # noqa: E402
+from repro.train import checkpoint as ref_checkpoint  # noqa: E402
+from repro.train import optim as ref_optim  # noqa: E402
+from repro.train.steps import init_train_state as ref_init_train_state  # noqa: E402
+from repro.train.steps import make_train_step as ref_make_train_step  # noqa: E402
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.data import TokenPipeline, pipeline_for  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import attention, build, losses, xlstm  # noqa: E402
+from repro_torch.train import checkpoint, optim, tree  # noqa: E402
+from repro_torch.train.steps import TrainState, make_train_step  # noqa: E402
 
-from _torch_lm import ref_jit
+from _torch_lm import ref_jit  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -7,12 +7,12 @@ the sort-based dispatch (a scatter whose dropped assignments all write one
 spare slot) and the ``index_add_`` combine."""
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch.models import moe
+from repro_torch.models import moe  # noqa: E402
 
-from _torch_lm import BF16, F32, apis
-from _torch_lm_train import batch, check_remat, check_train_step, port_step
+from _torch_lm import BF16, F32, apis  # noqa: E402
+from _torch_lm_train import batch, check_remat, check_train_step, port_step  # noqa: E402
 
 torch.set_num_threads(1)
 

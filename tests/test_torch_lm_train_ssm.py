@@ -3,10 +3,10 @@
 against off. The checks are ``_torch_lm_train.check_train_step``'s."""
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from _torch_lm import BF16, F32
-from _torch_lm_train import check_remat, check_train_step
+from _torch_lm import BF16, F32  # noqa: E402
+from _torch_lm_train import check_remat, check_train_step  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -10,16 +10,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import dp_model as jax_dp
-from repro.md import api as jax_api
-from repro.md import integrator as jax_integrator
-from repro.md import lattice as jax_lattice
-from repro.md import neighbors as jax_neighbors
-from repro.md import stepper as jax_stepper
-from repro_torch import bridge
-from repro_torch.md import api, integrator, lattice, neighbors, stepper
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.md import api as jax_api  # noqa: E402
+from repro.md import integrator as jax_integrator  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro.md import neighbors as jax_neighbors  # noqa: E402
+from repro.md import stepper as jax_stepper  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.md import api, integrator, lattice, neighbors, stepper  # noqa: E402
 
 # The suite runs several pytest workers on the machine's cores; torch's own
 # intra-op threads on top of them oversubscribe the CPU and stall its

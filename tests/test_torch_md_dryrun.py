@@ -21,13 +21,13 @@ import json
 import os
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.launch import md_dryrun as md
-from repro_torch.launch import mesh as mesh_mod
-from repro_torch.md import api, comm as comm_mod, domain, neighbors, stepper
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.launch import md_dryrun as md  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.md import api, comm as comm_mod, domain, neighbors, stepper  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -14,20 +14,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.utils import _pytree as pytree
+torch = pytest.importorskip("torch")
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
-from repro.analysis import hlo_cost
-from repro.core import dp_model as jax_dp
-from repro.core.types import DPConfig as JaxDPConfig
-from repro.md import lattice as jax_lattice
-from repro.md import neighbors as jax_neighbors
-from repro_torch import bridge
-from repro_torch.analysis import op_cost
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.kernels.dp_fused import build, ops
+from repro.analysis import hlo_cost  # noqa: E402
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.core.types import DPConfig as JaxDPConfig  # noqa: E402
+from repro.md import lattice as jax_lattice  # noqa: E402
+from repro.md import neighbors as jax_neighbors  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.analysis import op_cost  # noqa: E402
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.kernels.dp_fused import build, ops  # noqa: E402
 
 torch.set_num_threads(1)
 

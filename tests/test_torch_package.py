@@ -11,16 +11,16 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch import bridge, configs
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.launch import serve_lm
-from repro_torch.md import api, cli, driver, lattice
-from repro_torch.models import build
-from repro_torch.train import cli as train_cli
-from repro_torch.train import dp_trainer
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
+from repro_torch.md import api, cli, driver, lattice  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.train import cli as train_cli  # noqa: E402
+from repro_torch.train import dp_trainer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),

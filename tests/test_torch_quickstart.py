@@ -11,6 +11,10 @@ import re
 import subprocess
 import sys
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "examples", "quickstart_torch.py")
 

@@ -13,14 +13,14 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.analysis import roofline as jax_rl
-from repro_torch.analysis import roofline as rl
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
-from repro_torch.md import comm as comm_mod
-from repro_torch.md import domain, lattice
+from repro.analysis import roofline as jax_rl  # noqa: E402
+from repro_torch.analysis import roofline as rl  # noqa: E402
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.md import comm as comm_mod  # noqa: E402
+from repro_torch.md import domain, lattice  # noqa: E402
 
 torch.set_num_threads(1)
 

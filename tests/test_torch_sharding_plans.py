@@ -15,17 +15,17 @@ import functools
 
 import jax
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro import configs as ref_configs
-from repro.models import build as ref_build
-from repro.sharding import ctx as ref_ctx
-from repro.sharding import plans as ref_plans
-from repro_torch import configs
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import build
-from repro_torch.sharding import ctx, plans
-from repro_torch.train import tree
+from repro import configs as ref_configs  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
+from repro.sharding import ctx as ref_ctx  # noqa: E402
+from repro.sharding import plans as ref_plans  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.sharding import ctx, plans  # noqa: E402
+from repro_torch.train import tree  # noqa: E402
 
 torch.set_num_threads(1)
 

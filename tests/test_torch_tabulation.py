@@ -14,12 +14,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core import dp_model as jax_dp
-from repro.core import tabulation as jax_tab
-from repro_torch import bridge
-from repro_torch.core import dp_model, embedding, tabulation
+from repro.core import dp_model as jax_dp  # noqa: E402
+from repro.core import tabulation as jax_tab  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import dp_model, embedding, tabulation  # noqa: E402
 
 # One torch thread: the suite's pytest workers already occupy the cores.
 torch.set_num_threads(1)

@@ -6,15 +6,15 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core.types import DPConfig as JaxDPConfig
-from repro.md import domain as jax_domain
-from repro.md import stepper as jax_stepper
-from repro.md.topology import Topology as JaxTopology
-from repro_torch.core.types import DPConfig
-from repro_torch.md import domain, stepper
-from repro_torch.md.topology import Topology
+from repro.core.types import DPConfig as JaxDPConfig  # noqa: E402
+from repro.md import domain as jax_domain  # noqa: E402
+from repro.md import stepper as jax_stepper  # noqa: E402
+from repro.md.topology import Topology as JaxTopology  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
+from repro_torch.md import domain, stepper  # noqa: E402
+from repro_torch.md.topology import Topology  # noqa: E402
 
 torch.set_num_threads(1)
 
