@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
+    python3 chip_smoke.py --phases 10c   # phases 1, 3 and 10 (c) alone
 
 Phases; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); build the dp_fused CUDA
@@ -68,7 +69,17 @@ Phases; any failure exits non-zero before the result line:
      us/step/atom, capture seconds, replays, peak memory, the graph pool's
      bytes, the sweeps' share of the device time, the card's busy share
      and the host's launch calls, eager and during a replay
-     (torch.profiler).
+     (torch.profiler). (c) with two or more cards, ``DistComm`` over NCCL,
+     one process and one card a rank (spawned; (2, 2) x 1 in atoms and
+     (2,) x 2 in slots on four cards, (2,) x 1 on two): the 99-step
+     protocol eager, then with each process recording its own rank's
+     segments as CUDA graphs: captured against eager (thermo rtol 1e-6,
+     positions 1e-4 A by minimum image), both against LocalComm's
+     thread-ranks of the same grid on card 0 and phase 3 (rtol 1e-5),
+     atoms constant, drift <= 1e-4 eV/atom; launches 100 eager and 102
+     captured a process, us/step/atom, capture seconds, the graph pool,
+     rank 0's busy share and host launch calls eager and in a replay.
+     With one card it prints why it did not run.
  11. DP training at full COPPER_DP width (``repro_torch.train``, the
      ``mlp`` rung, which launches no kernel): teacher data on 16 jittered
      fcc_copper(5,5,5) = 500-atom configurations, the student (seed 0)
@@ -1067,19 +1078,26 @@ def host_launches(prof):
     return sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCHES)
 
 
-def sweep_share(step, params, st, boxt):
+def sweep_share(step, params, st, boxt, profile_here=True):
     """Device time under the halo/reverse/migration ranges over all device
     time of two steps, from torch.profiler (all threads); the card's busy
     share of the wall and the host's launch calls a step. Returns the busy
-    share."""
+    share and the launch calls a step. Under ``DistComm`` every process
+    runs the two steps (they exchange atoms) and rank 0 alone profiles
+    them (``profile_here``)."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
         cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
     except TypeError:
-        log("    sweep share: this torch cannot profile worker threads; "
-            "not measured")
-        return None
+        cfg = None
+    if cfg is None or not profile_here:
+        if profile_here:
+            log("    sweep share: this torch cannot profile worker threads; "
+                "not measured")
+        step.run(params, st, 2, (), boxt)
+        torch.cuda.synchronize()
+        return None, None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  experimental_config=cfg) as prof:
@@ -1100,20 +1118,20 @@ def sweep_share(step, params, st, boxt):
               for e, c in zip(rows, on_card)
               if not c and e.key.startswith("domain.")}
     busy = device_busy(prof)[0] / 2e3 / wall
+    calls = host_launches(prof) / 2
     log(f"    eager, profile of 2 steps: {wall:.3f} ms wall a step; the card "
-        f"busy {busy:.2%} of it; host launch calls a step "
-        f"{host_launches(prof) / 2:.0f}")
+        f"busy {busy:.2%} of it; host launch calls a step {calls:.0f}")
     if not total or not ranges:
         log("    sweep share: the profiler recorded no device time under the "
             "ranges; not measured")
-        return busy
+        return busy, calls
     share = sum(ranges.values()) / total
     log(f"    {total:.3f} ms of kernel time a step over all ranks "
         f"({total / wall:.1%} of the wall); under ranges: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in sorted(ranges.items()))
         + f"; sweep share of the kernel time {share:.2%}")
     log_kernels(prof, 2, "two distributed steps", top=8)
-    return busy
+    return busy, calls
 
 
 def dist_kernel_case(label, args, dev):
@@ -1190,15 +1208,39 @@ def dist_against(got, want, box, what):
     return worst, same, dpos, dvel
 
 
-def profile_dist_replay(prog, params, st, box_t, seg_len):
+def dist_against_scan(run, scan, n):
+    """Atoms constant, drift <= 1e-4 eV/atom and the thermo rows within
+    rtol 1e-5 of phase 3's scan run."""
+    worst = 0.0
+    for row in scan.thermo:
+        i = row["step"] - 1
+        for k in ("pe", "ke", "etot"):
+            worst = max(worst, abs(run[k][i] - row[k])
+                        / max(abs(row[k]), 1e-30))
+    drift = float(run["etot"].max() - run["etot"].min()) / n
+    log(f"    atoms per step {int(run['n_atoms'].min())}.."
+        f"{int(run['n_atoms'].max())}; |d etot| per atom {drift:.3e} eV "
+        f"(limit 1e-4); against phase 3's scan run: thermo max rel diff "
+        f"{worst:.3e} (rtol 1e-5)")
+    return bool(np.all(run["n_atoms"] == n) and drift <= 1e-4
+                and worst <= 1e-5)
+
+
+def profile_dist_replay(prog, params, st, box_t, seg_len, profile_here=True):
     """A segment of ``seg_len`` steps captured, replayed, then replayed
     under the profiler: wall, the card's busy share of it, the host's
     launch calls, the kernel rows. (Short: with a 50-step replay, ~125,000
-    kernels, the profiler's own processing took most of 30 s.)"""
+    kernels, the profiler's own processing took most of 30 s.) Returns the
+    busy share and the launch calls. Under ``DistComm`` every process
+    captures and replays, rank 0 alone profiles (``profile_here``)."""
     from torch.profiler import ProfilerActivity, profile
 
     prog.run(st, params, 1, seg_len, (), box_t)
     torch.cuda.synchronize()
+    if not profile_here:
+        prog.run(st, params, 1, seg_len, (), box_t)
+        torch.cuda.synchronize()
+        return None, None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1212,7 +1254,7 @@ def profile_dist_replay(prog, params, st, box_t, seg_len):
         f"of its first-to-last span {span / 1e3:.3f} ms); host launch "
         f"calls in the segment {host_launches(prof)}")
     log_kernels(prof, 1, "a replayed segment", top=8)
-    return busy / wall
+    return busy / wall, host_launches(prof)
 
 
 def phase_distributed(cfg, params, dev, scan):
@@ -1271,20 +1313,6 @@ def phase_distributed(cfg, params, dev, scan):
             cfg, spec, lc, (lattice.MASS["Cu"],), 1.0, decomp="slots",
             neighbor="cells", potential=pot, capture=capture)
 
-    def against_scan(run):
-        worst = 0.0
-        for row in scan.thermo:
-            i = row["step"] - 1
-            for k in ("pe", "ke", "etot"):
-                worst = max(worst, abs(run[k][i] - row[k])
-                            / max(abs(row[k]), 1e-30))
-        drift = float(run["etot"].max() - run["etot"].min()) / n
-        log(f"    atoms per step {int(run['n_atoms'].min())}.."
-            f"{int(run['n_atoms'].max())}; |d etot| per atom {drift:.3e} eV "
-            f"(limit 1e-4); against phase 3's scan run: thermo max rel diff "
-            f"{worst:.3e} (rtol 1e-5)")
-        return np.all(run["n_atoms"] == n) and drift <= 1e-4 and worst <= 1e-5
-
     prog = program(spec, lc, False)
     eager = dist_protocol(prog, params, st0, box_t)
     launches["distributed_a"] = eager["launches"]
@@ -1295,7 +1323,7 @@ def phase_distributed(cfg, params, dev, scan):
         log(f"    step {row['step']}: pe {eager['pe'][i]:.6f} ke "
             f"{eager['ke'][i]:.6f} etot {eager['etot'][i]:.6f} (scan: "
             f"{row['pe']:.6f} {row['ke']:.6f} {row['etot']:.6f})")
-    if not against_scan(eager):
+    if not dist_against_scan(eager, scan, n):
         raise AssertionError("distributed (a) eager protocol failed")
     for name, count in eager["launches"].items():
         if count != 8 * 100:
@@ -1320,7 +1348,7 @@ def phase_distributed(cfg, params, dev, scan):
         + ("not measured" if pool is None else
            f"{pool / 2**30:.3f} GiB ({pool / eager['peak']:.2f}x the eager "
            f"run's max_memory_allocated {eager['peak'] / 2**30:.3f} GiB)"))
-    ok = against_scan(graph)
+    ok = dist_against_scan(graph, scan, n)
     worst, same, dpos, dvel = dist_against(graph, eager, box, "the eager run")
     want = 8 * (100 + prog.captures)
     log(f"    launches {graph['launches']}: 8 ranks x (1 initial force "
@@ -1380,6 +1408,258 @@ def phase_distributed(cfg, params, dev, scan):
     log(f"    (b) {time.perf_counter() - t_sub:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return kernels, launches
+
+
+# (c): DistComm over NCCL, one process and one card a rank, by the cards
+# visible. Capacities derived as (a)'s and (b)'s: atoms 1.1 x a brick's
+# share, halo ~1.27 x the largest per-side sweep at rcut_halo = 10 A (a
+# (2, 2) brick's y sweep packs 3,437 atoms, a 2-slab's 4,426)
+DIST_CARD_CASES = {
+    4: [dict(label="(2, 2) x 1 model shard, atoms", topology=(2, 2),
+             n_model=1, decomp="atoms", cap=8800, halo=4400),
+        dict(label="(2,) x 2 model shards, slots", topology=(2,), n_model=2,
+             decomp="slots", cap=17600, halo=5600)],
+    2: [dict(label="(2,) x 1 model shard, atoms", topology=(2,), n_model=1,
+             decomp="atoms", cap=17600, halo=5600)],
+}
+DIST_CARD_DEADLINE = 600      # s for one case's processes
+
+
+def dist_card_program(cfg, spec, comm, case, capture):
+    from repro_torch.md import api, domain, lattice
+
+    return domain.make_outer_md_program(
+        cfg, spec, comm, (lattice.MASS["Cu"],), 1.0, decomp=case["decomp"],
+        neighbor="cells", potential=api.make_potential(
+            "dp", cfg, impl="cheb_pallas"), capture=capture)
+
+
+def dist_card_spec(cfg, case, box):
+    from repro_torch.md import domain
+
+    spec = domain.DomainSpec.for_topology(
+        tuple(float(b) for b in box), case["topology"], case["cap"],
+        case["halo"], cfg.rcut + 2.0)
+    spec.validate()
+    return spec
+
+
+def dist_card_worker(rank, case, port, out_dir):
+    """Phase 10 (c), one NCCL process on card ``rank``: the 99-step
+    protocol on this process's rank of ``case`` from the parent's atoms,
+    eager (``capture=False``), then captured (each segment length recorded
+    once as a CUDA graph of this rank, NCCL calls included); an eager
+    2-step profile and a profiled 5-step replay on rank 0 (every process
+    runs them); the whole states gathered. Rank 0 saves the thermo rows,
+    the states and every process's numbers."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.dp_model import init_dp_params, tabulate_model
+    from repro_torch.core.types import COPPER_DP as cfg
+    from repro_torch.device import resolve_device
+    from repro_torch.md import comm, domain, stepper
+
+    torch.cuda.set_device(rank)
+    resolve_device("cuda")               # switches TF32 off, as the parent's
+    dev = torch.device("cuda", rank)
+    world = int(np.prod(case["topology"])) * case["n_model"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    lead = rank == 0
+    try:
+        atoms = np.load(Path(out_dir) / "atoms.npz")
+        params = tabulate_model(init_dp_params(
+            torch.Generator().manual_seed(SEED), cfg, device=dev), cfg,
+            "cheb")
+        spec = dist_card_spec(cfg, case, atoms["box"])
+        dc = comm.DistComm(spec.n_slabs, case["n_model"])
+        state, ovf = domain.partition_atoms(atoms["pos"], atoms["vel"],
+                                            atoms["typ"], spec)
+        if ovf > 0:
+            raise AssertionError(f"brick capacity overflow {ovf}")
+        st0 = domain.shard_state(state, dc, dev)
+        box_t = stepper.pack_box(atoms["box"], dev)
+        runs, mine = {}, {}
+        for capture in (False, True):
+            prog = dist_card_program(cfg, spec, dc, case, capture)
+            run = dist_protocol(prog, params, st0, box_t)
+            tag = "captured" if capture else "eager"
+            mine[tag] = dict(wall=run["wall"], t_prime=run["t_prime"],
+                             launches=run["launches"], peak=run["peak"])
+            if capture:
+                mine[tag].update(captures=prog.captures,
+                                 replays=prog.replays,
+                                 capture_s=prog.capture_s,
+                                 pool=graph_pool_bytes(prog))
+                mine["replay"] = profile_dist_replay(
+                    prog, params, run["state"], box_t, 5, profile_here=lead)
+            else:
+                mine["eager_profile"] = sweep_share(
+                    prog.step, params, run["state"], box_t, profile_here=lead)
+            runs[tag] = {k: run[k] for k in ("pe", "ke", "etot", "n_atoms")}
+            runs[tag]["state"] = domain.gather_state(run["state"], dc)
+            del prog, run
+            gc.collect()
+            torch.cuda.empty_cache()
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if lead:
+            torch.save(dict(runs=runs, every=every),
+                       Path(out_dir) / "result.pt")
+    finally:
+        domain.release_graphs()   # NCCL waits for live graphs otherwise
+        dist.destroy_process_group()
+
+
+def dist_card_case(cfg, params, dev, scan, case, out_dir, atoms):
+    """One case of phase 10 (c): its NCCL processes, then their result held
+    against itself, LocalComm on card 0 and phase 3. Returns the launches
+    of rank 0 (eager, captured) and the failed checks."""
+    import socket
+
+    from repro_torch.md import comm, domain
+
+    world = int(np.prod(case["topology"])) * case["n_model"]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    log(f"[10c] {case['label']}: {world} NCCL processes, one card each, "
+        f"{len(atoms['pos'])} atoms, cheb_pallas, the 99-step protocol "
+        f"eager, then each segment length captured once per process")
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        dist_card_worker, args=(case, port, out_dir), nprocs=world,
+        join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > DIST_CARD_DEADLINE:
+                raise AssertionError(f"(c) {case['label']}: the NCCL "
+                                     f"processes did not finish in "
+                                     f"{DIST_CARD_DEADLINE} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    res = torch.load(Path(out_dir) / "result.pt", weights_only=False)
+    log(f"    processes done in {time.perf_counter() - t0:.1f} s")
+    n, failed = len(atoms["pos"]), []
+    on_dev = {tag: dict(r, state=domain.SlabState(
+        *(None if x is None else x.to(dev) for x in r["state"])))
+        for tag, r in res["runs"].items()}
+    eager, graph = on_dev["eager"], on_dev["captured"]
+    every = res["every"]
+    for tag in ("eager", "captured"):
+        walls = [e[tag]["wall"] for e in every]
+        log(f"    {tag}: {walls[0] * 1e6 / (99 * n):.6f} us/step/atom (rank "
+            f"0's loop {walls[0]:.3f} s, slowest {max(walls):.3f} s; "
+            f"initial force evaluation {every[0][tag]['t_prime']:.3f} s); "
+            f"launches a process "
+            f"{[e[tag]['launches']['dp_fused_fwd'] for e in every]} fwd, "
+            f"{[e[tag]['launches']['dp_fused_bwd'] for e in every]} bwd; "
+            f"max_memory_allocated rank 0 "
+            f"{every[0][tag]['peak'] / 2**30:.3f} GiB")
+    g0 = every[0]["captured"]
+    caps = [e["captured"]["capture_s"] for e in every]
+    pool = g0["pool"]
+    log(f"    graph captures {g0['captures']} a process (warm-up + capture "
+        f"rank 0 {caps[0]:.3f} s, slowest {max(caps):.3f} s), replays "
+        f"{g0['replays']}; replays only "
+        f"{(g0['wall'] - caps[0]) * 1e6 / (99 * n):.6f} us/step/atom; graph "
+        f"pool rank 0 " + ("not measured" if pool is None else
+                           f"{pool / 2**30:.3f} GiB "
+                           f"({pool / every[0]['eager']['peak']:.2f}x its "
+                           f"eager max_memory_allocated)"))
+    busy, calls = every[0]["replay"]
+    e_busy, e_calls = every[0]["eager_profile"]
+    log(f"    rank 0: eager card busy "
+        + ("not measured" if e_busy is None else
+           f"{e_busy:.2%}, host launch calls a step {e_calls:.0f}")
+        + "; a profiled 5-step replay: card busy "
+        + ("not measured" if busy is None else
+           f"{busy:.2%}, host launch calls {calls}"))
+    want = 100 + g0["captures"]
+    for e in every:
+        for name in REPLACES:
+            if e["eager"]["launches"][name] != 100:
+                failed.append(f"eager {name} launches {e['eager']['launches']}")
+            if e["captured"]["launches"][name] != want:
+                failed.append(f"captured {name} launches "
+                              f"{e['captured']['launches']} != {want}")
+        if (e["captured"]["captures"], e["captured"]["replays"]) != (2, 2):
+            failed.append(f"captures/replays {e['captured']['captures']}/"
+                          f"{e['captured']['replays']}")
+    box = atoms["box"]
+    worst, same, dpos, _ = dist_against(graph, eager, box, "the eager run")
+    if not (worst <= 1e-6 and same and dpos <= 1e-4):
+        failed.append("captured != eager")
+    for tag, run in on_dev.items():
+        log(f"    {tag}:")
+        if not dist_against_scan(run, scan, n):
+            failed.append(f"{tag} against phase 3")
+    # the same grid as LocalComm's thread-ranks on card 0
+    spec = dist_card_spec(cfg, case, box)
+    lc = comm.LocalComm(spec.n_slabs, case["n_model"], device=dev)
+    state, _ = domain.partition_atoms(atoms["pos"], atoms["vel"],
+                                      atoms["typ"], spec)
+    t1 = time.perf_counter()
+    local = dist_protocol(dist_card_program(cfg, spec, lc, case, False),
+                          params, domain.shard_state(state, lc, dev),
+                          torch.as_tensor(np.asarray(box, np.float32),
+                                          device=dev))
+    log(f"    LocalComm, {spec.n_slabs * case['n_model']} thread-ranks on "
+        f"card 0, eager: {local['wall'] * 1e6 / (99 * n):.6f} us/step/atom "
+        f"({time.perf_counter() - t1:.1f} s)")
+    for tag, run in on_dev.items():
+        worst, _, _, _ = dist_against(run, local, box,
+                                      f"LocalComm ({tag} DistComm)")
+        if worst > 1e-5:
+            failed.append(f"{tag} against LocalComm")
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"eager": every[0]["eager"]["launches"],
+             "captured": g0["launches"]}, failed)
+
+
+def phase_dist_cards(cfg, params, dev, scan):
+    """Phase 10 (c): with two or more cards, copper at full COPPER_DP
+    width over DistComm on NCCL, one process and card a rank, the 99-step
+    protocol from phase 3's velocities eager and captured (each process
+    records its own rank's segments as CUDA graphs and replays them),
+    held: captured against eager (thermo rtol 1e-6, positions 1e-4 A by
+    minimum image), both against LocalComm's thread-ranks of the same grid
+    on card 0 and phase 3's rows (rtol 1e-5), atoms constant, drift <= 1e-4
+    eV/atom. With one card it says so and runs nothing."""
+    from repro_torch.md import integrator, lattice
+
+    n_cards = torch.cuda.device_count()
+    cases = DIST_CARD_CASES[4 if n_cards >= 4 else 2] if n_cards >= 2 else []
+    if not cases:
+        log(f"[10c] DistComm over NCCL, captured: needs two or more cards, "
+            f"one process each; {n_cards} visible, so not run")
+        return {}
+    t_phase = time.perf_counter()
+    pos, typ, box = lattice.fcc_copper(*[MAIN_NX] * 3)
+    masses = torch.as_tensor(lattice.masses_for(("Cu",), typ),
+                             dtype=torch.float32, device=dev)
+    vel = integrator.init_velocities(torch.Generator().manual_seed(SEED),
+                                     masses, 330.0)
+    atoms = dict(pos=pos.astype(np.float32), vel=vel.cpu().numpy(), typ=typ,
+                 box=np.asarray(box, np.float64))
+    launches, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "atoms.npz", **atoms)
+        for i, case in enumerate(cases):
+            got, bad = dist_card_case(cfg, params, dev, scan, case, tmp,
+                                      atoms)
+            launches[f"distributed_c{i}"] = got["eager"]
+            launches[f"distributed_c{i}_graph"] = got["captured"]
+            failed += [f"{case['label']}: {b}" for b in bad]
+    log(f"    (c) {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 10 (c) failed: {failed}")
+    return launches
 
 
 # ----------------------------------------------------------------- phase 11
@@ -3517,7 +3797,18 @@ def lf_train_moe(dev, traces):
     return failures
 
 
-def main() -> int:
+def main(argv) -> int:
+    # ``--phases 10c`` (or ``10``, or ``10,10c``): phases 1 and 3, then
+    # phase 10 (a)-(b) or (c) alone, for a run on several cards; no result
+    # line, as it is not the whole run
+    only = None
+    if (len(argv) == 2 and argv[0] == "--phases"
+            and set(argv[1].split(",")) <= {"10", "10c"}):
+        only = set(argv[1].split(","))
+    elif argv:
+        print(f"chip_smoke: usage: chip_smoke.py [--phases 10,10c]; got "
+              f"{argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -3541,6 +3832,16 @@ def main() -> int:
     params = tabulate_model(
         init_dp_params(torch.Generator().manual_seed(SEED), COPPER_DP,
                        device=dev), COPPER_DP, "cheb")
+    if only is not None:
+        _, scan = phase_main_path(COPPER_DP, params, dev)
+        if "10" in only:
+            phase_distributed(COPPER_DP, params, dev, scan)
+        if "10c" in only:
+            phase_dist_cards(COPPER_DP, params, dev, scan)
+        log(f"phases 1, 3, {sorted(only)} passed in "
+            f"{time.perf_counter() - t_start:.1f} s (no result line: not "
+            f"the whole run)")
+        return 0
     kernels = phase_kernels(COPPER_DP, WATER_DP, params, dev)
     launches, scan = phase_main_path(COPPER_DP, params, dev)
     by_path = {"scan": launches}
@@ -3554,6 +3855,7 @@ def main() -> int:
     done(9)
     _, dist_launches = phase_distributed(COPPER_DP, params, dev, scan)
     by_path.update(dist_launches)
+    by_path.update(phase_dist_cards(COPPER_DP, params, dev, scan))
     by_path["train_check"] = phase_train(COPPER_DP, dev)
     done(11)
     _, by_path["dryrun"] = phase_dryrun(dev)
@@ -3575,4 +3877,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,12 +19,15 @@ in this process (``LocalComm``). Two engines:
   --engine outer  (default) one pass over the ranks per chunk of segments:
                   migration at each segment's start, then the steps; one
                   host fetch (thermo + overflow flags) per chunk, and a
-                  chunk replayed with escalated capacities on overflow. With
-                  --local-ranks on the card a segment is captured once per
-                  length as a CUDA graph and replayed (an escalation builds
-                  a new program and captures again); the last line counts
-                  the captures, replays and capture seconds.
-  --engine scan   one pass per rebuild segment, migration between segments.
+                  chunk replayed with escalated capacities on overflow. On
+                  the card (--local-ranks, or torchrun with one card a
+                  process) a segment is captured once per length as a CUDA
+                  graph and replayed (an escalation builds a new program on
+                  every process and captures again); the last line counts
+                  the captures, replays and capture seconds summed over the
+                  processes, and the slowest process's capture seconds.
+  --engine scan   one pass per rebuild segment, migration between segments,
+                  eager.
 
 Fewer than 2 bricks degenerate to the single-process driver
 (``md/driver.run_simulation``). Runs on the card unless ``--device cpu``.
@@ -131,6 +134,7 @@ def main(argv=None):
     finally:
         if under_torchrun:
             import torch.distributed as dist
+            domain.release_graphs()     # NCCL waits for them otherwise
             dist.destroy_process_group()
 
 
@@ -267,11 +271,11 @@ def run(args, n_ranks: int, under_torchrun: bool, dev: torch.device) -> None:
             show(thermo, base, n_segs * seg_len)
             base += n_segs * seg_len
         programs.append(program)
-        captures = (f"; graph captures {sum(p.captures for p in programs)}, "
-                    f"replays {sum(p.replays for p in programs)}, capture "
-                    f"{sum(p.capture_s for p in programs):.3f} s")
+        counts = (sum(p.captures for p in programs),
+                  sum(p.replays for p in programs),
+                  sum(p.capture_s for p in programs))
     else:
-        captures = ""
+        counts = None
         step = domain.make_distributed_md_step(
             cfg, spec, comm, masses_t, args.dt, impl=args.impl,
             decomp="atoms", neighbor="cells", potential=potential,
@@ -298,6 +302,19 @@ def run(args, n_ranks: int, under_torchrun: bool, dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt_wall = time.perf_counter() - t0
+    captures = ""
+    if counts is not None:
+        every = [counts]
+        if under_torchrun:          # once, after the timed loop
+            import torch.distributed as dist
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, counts)
+        captures = (f"; graph captures {sum(c[0] for c in every)}, replays "
+                    f"{sum(c[1] for c in every)}, capture "
+                    f"{sum(c[2] for c in every):.3f} s")
+        if under_torchrun:
+            captures += (f" over {len(every)} processes (slowest "
+                         f"{max(c[2] for c in every):.3f} s)")
     if barostat is not None:
         say(f"final box {np.round(boxd.cpu().numpy(), 3)} A")
     say(f"{dt_wall / args.steps * 1e6 / n:.2f} us/step/atom wall (this "

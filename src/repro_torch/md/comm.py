@@ -37,6 +37,15 @@ Three implementations run the same per-rank code:
              the call's tensors tagged by position; two calls that name the
              same peer (the plus and minus rings of a 2-brick axis) never mix.
              ``psum``/``pmax`` are ``all_reduce`` over the axis's subgroup.
+             On NCCL every call may be recorded into a CUDA graph on the
+             caller's stream (``md/domain.StaticSegment``): ProcessGroupNCCL
+             runs it on its own stream forked from the caller's and joined
+             back by the wait, and keeps recorded work from its watchdog.
+             NCCL creates communicators and connects peers lazily, which a
+             capture refuses, so a warm-up must issue every call of the
+             captured code first. :meth:`DistComm.agree` runs over a gloo
+             group of its own, so processes agree on a failed capture
+             without touching NCCL state.
 
   DryRunComm one rank of a grid of any size, alone: ``ppermute`` gives the
              rank its own send buffers back (copies, as DistComm's receive
@@ -50,6 +59,9 @@ Three implementations run the same per-rank code:
 
 ``run(fn)`` calls ``fn(rank)`` on every rank this process holds and returns
 ``{global rank: result}``; ``bricks`` lists the spatial indices held here.
+``LocalComm`` and ``DistComm``, which can record graphs, also list those
+ranks (``ranks``) and tell whether every process passed True to
+``agree(ok)``.
 
 No collective may run inside a backward pass: the autograd engine runs a
 card's backward on one worker thread, where threads that share the card would
@@ -260,6 +272,13 @@ class LocalComm:
     def bricks(self) -> Tuple[int, ...]:
         return tuple(range(self.n_spatial))
 
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return tuple(range(self.n_ranks))
+
+    def agree(self, ok: bool) -> bool:
+        return bool(ok)            # one process: nobody else to ask
+
     def run(self, fn: Callable[[RankComm], Any]) -> Dict[int, Any]:
         """``fn(rank)`` on every rank, each on its own thread; results by
         rank. Raises the first failing rank's exception."""
@@ -348,10 +367,23 @@ class DistComm(RankComm):
                                     for s in range(self.n_spatial)])
                 if m == self.model_index:
                     self._groups[SPATIAL] = g
+        self._agree_group = dist.new_group(backend="gloo") if nccl else None
 
     @property
     def bricks(self) -> Tuple[int, ...]:
         return (self.spatial_index,)
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return (self.rank,)
+
+    def agree(self, ok: bool) -> bool:
+        """Whether every process passed ``ok``: one all-reduce of a CPU
+        flag over gloo, outside any NCCL communicator and any graph."""
+        flag = torch.tensor([int(bool(ok))], dtype=torch.int32)
+        self._dist.all_reduce(flag, op=self._dist.ReduceOp.MIN,
+                              group=self._agree_group)
+        return bool(flag.item())
 
     def run(self, fn: Callable[[RankComm], Any]) -> Dict[int, Any]:
         return {self.rank: fn(self)}

@@ -50,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -1080,16 +1081,20 @@ class OuterMDProgram:
     ``mig_overflow`` ``(n_segments, ndim)``, checked by
     :func:`check_segment_thermo` once per chunk.
 
-    On a :class:`~repro_torch.md.comm.LocalComm` on the card, one segment
-    is captured as a CUDA graph once per ``seg_len`` (a
-    :class:`StaticSegment`) and :meth:`run` replays it once per segment, as
-    the reference's whole-trajectory program is one dispatch: the host
-    issues a replay per segment and reads nothing. A failed capture raises.
-    An escalation builds a new program, and with it new graphs. Elsewhere
-    (the CPU, ``DistComm`` with one process per rank, ``DryRunComm``), and
-    with ``capture=False`` (the oracle a capture is held against), every
-    rank loops over the segments eagerly in one pass. ``captures``,
-    ``replays`` and ``capture_s`` count the graphs' work.
+    On the card, under a :class:`~repro_torch.md.comm.LocalComm` (every
+    rank in one graph) or a :class:`~repro_torch.md.comm.DistComm` (each
+    process records its own rank, its NCCL calls included), one segment is
+    captured as a CUDA graph once per ``seg_len`` (a :class:`StaticSegment`)
+    and :meth:`run` replays it once per segment, as the reference's
+    whole-trajectory program is one dispatch: the host issues a replay per
+    segment and reads nothing. A failed capture raises, on every process:
+    they agree after the warm-up and after the recording, before any
+    replay. The overflow flags are maxed over the grid, so every process
+    escalates together; an escalation builds a new program, and with it
+    new graphs. On the CPU (gloo included), under ``DryRunComm``, and with
+    ``capture=False`` (the oracle a capture is held against), every rank
+    loops over the segments eagerly in one pass. ``captures``, ``replays``
+    and ``capture_s`` count this process's graphs' work.
     """
 
     def __init__(self, cfg: Optional[DPConfig], spec: DomainSpec, comm,
@@ -1133,8 +1138,7 @@ class OuterMDProgram:
         if box is None:
             box = stepper.pack_box(self.spec.box, state.pos.device)
         ens = _norm_ens(ens, self.comm)
-        if (self.capture and isinstance(self.comm, comm_mod.LocalComm)
-                and state.pos.is_cuda):
+        if self.captures_on(state):
             return self._replay(state, params, n_segments, seg_len, ens, box,
                                 baro)
         spec, step = self.spec, self.step.local.step
@@ -1148,6 +1152,11 @@ class OuterMDProgram:
                                                         ens, baro)
         return state, ens, box, baro, th
 
+    def captures_on(self, state: SlabState) -> bool:
+        """Whether :meth:`run` records and replays graphs for ``state``."""
+        return (self.capture and state.pos.is_cuda and isinstance(
+            self.comm, (comm_mod.LocalComm, comm_mod.DistComm)))
+
     def _replay(self, state, params, n_segments, seg_len, ens, box, baro):
         seg = self._graphs.get(seg_len)
         if seg is not None and seg.params is not params:
@@ -1158,8 +1167,10 @@ class OuterMDProgram:
             seg = StaticSegment(self, params, (state, ens, box, baro),
                                 seg_len)
             # the segments of one program share one memory pool
-            seg.capture(next((g.graph.pool()
-                              for g in self._graphs.values()), None))
+            pool = next((g.graph.pool() for g in self._graphs.values()
+                         if g.graph is not None), None)
+            on_every_process(self.comm, "capture",
+                             lambda: seg.capture(pool))
             self._graphs[seg_len] = seg
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
@@ -1173,24 +1184,58 @@ class OuterMDProgram:
                 {k: torch.cat([t[k] for t in ths]) for k in ths[0]})
 
 
+#: every StaticSegment that holds a graph, weakly: NCCL does not destroy a
+#: communicator while a graph that captured its calls lives
+_RECORDED: "weakref.WeakSet[StaticSegment]" = weakref.WeakSet()
+
+
+def release_graphs() -> None:
+    """Drop the graph of every live :class:`StaticSegment` (they then run
+    eagerly). Call it before ``torch.distributed.destroy_process_group``,
+    also after a run raised, whose frames may still hold its programs:
+    destroying a NCCL communicator waits for every graph that recorded its
+    calls, for ever."""
+    for seg in list(_RECORDED):
+        seg.graph = None
+
+
+def on_every_process(comm, what: str, fn: Callable[[], Any]) -> Any:
+    """``fn()``, then every process of ``comm`` learns whether all of them
+    got through it (``comm.agree``): the one that failed raises its error
+    and the others raise too. A process that went on alone would wait in a
+    collective, or in a replay's NCCL kernels, forever."""
+    try:
+        out = fn()
+    except BaseException:
+        comm.agree(False)
+        raise
+    if not comm.agree(True):
+        raise RuntimeError(f"the segment's {what} failed on another process")
+    return out
+
+
 class StaticSegment:
-    """One segment of :meth:`OuterMDProgram.run` on every rank of a
-    :class:`~repro_torch.md.comm.LocalComm` over static carry buffers:
-    the staged migration sweeps then ``seg_len`` steps from ``state`` (the
-    stacked bricks) and ``box``, with the new bricks and box written back
-    into them, so n calls run n segments in a row.
+    """One segment of :meth:`OuterMDProgram.run` on every rank this process
+    runs (``comm.ranks``: all of a :class:`~repro_torch.md.comm.LocalComm`,
+    the one of a :class:`~repro_torch.md.comm.DistComm`) over static carry
+    buffers: the staged migration sweeps then ``seg_len`` steps from
+    ``state`` (the stacked bricks held here, ``comm.bricks``) and ``box``,
+    with the new bricks and box written back into them, so n calls run n
+    segments in a row.
 
     Each rank draws from generators of its own that live as long as the
     segment (``trees``: rank -> (ensemble state, barostat state)), since a
     graph draws from the generator objects it was recorded with; the model
     shards of one brick start from the same states and stay equal.
     :meth:`load` sets them to the caller's states and :meth:`store_gens`
-    gives the caller those of each brick's lowest model shard.
+    gives the caller those of each held brick's lowest model shard here.
 
     :meth:`capture` (the card) records the segment as a CUDA graph after
-    a one-step warm-up on copies; :meth:`replay` then replays it, and
-    otherwise runs the same function eagerly. Ensemble and barostat states
-    carry their generators only, as in the eager program.
+    a one-step warm-up on copies, which issues every collective the
+    segment makes (NCCL sets up communicators and peers on first use, which
+    a capture refuses); :meth:`replay` then replays it, and otherwise runs
+    the same function eagerly. Ensemble and barostat states carry their
+    generators only, as in the eager program.
     """
 
     def __init__(self, program: OuterMDProgram, params, carry, seg_len: int):
@@ -1203,9 +1248,13 @@ class StaticSegment:
         self.state = SlabState(*(None if x is None else x.clone()
                                  for x in state))
         self.box = box.clone()
-        self.trees = {r: (_clone_gens(ens[r // comm.n_model]),
-                          _clone_gens(baro)) for r in range(comm.n_ranks)}
+        self.trees = {r: (_clone_gens(ens[self._held(r)]), _clone_gens(baro))
+                      for r in comm.ranks}
         self.graph = None
+
+    def _held(self, rank: int) -> int:
+        """The index in ``comm.bricks`` of ``rank``'s brick."""
+        return self.comm.bricks.index(rank // self.comm.n_model)
 
     def _segment(self, state: SlabState, box, seg_len: int):
         """One segment from ``(state, box)``, written back into them; the
@@ -1232,8 +1281,10 @@ class StaticSegment:
         warm = stepper.snapshot((self.state, self.box)).carry
         self.graph, self.thermo, self.launches = stepper.capture_graph(
             lambda: self._segment(self.state, self.box, self.seg_len),
-            lambda: self._segment(*warm, 1),
+            lambda: on_every_process(self.comm, "warm-up",
+                                     lambda: self._segment(*warm, 1)),
             stepper.generators_of(self.trees), pool, "thread_local")
+        _RECORDED.add(self)
 
     def load(self, state: SlabState, ens, box, baro) -> None:
         """Copy the carry into the static buffers (no-op for the buffers
@@ -1244,18 +1295,17 @@ class StaticSegment:
                     dst.copy_(src)
         if box is not self.box:
             self.box.copy_(box)
-        n_model = self.comm.n_model
         for r, (ens_r, baro_r) in self.trees.items():
-            _adopt_gens(ens_r, ens[r // n_model])
+            _adopt_gens(ens_r, ens[self._held(r)])
             _adopt_gens(baro_r, baro)
 
     def store_gens(self, ens, baro) -> None:
-        """The caller's generators take the states of each brick's lowest
-        model shard (the barostat's: the first brick's)."""
-        n_model = self.comm.n_model
-        for i, e in enumerate(ens):
-            _adopt_gens(e, self.trees[i * n_model][0])
-        _adopt_gens(baro, self.trees[0][1])
+        """The caller's generators take the states of each held brick's
+        ranks here (its model shards draw alike; the barostat's: any
+        rank's, all draw alike)."""
+        for r, (ens_r, baro_r) in self.trees.items():
+            _adopt_gens(ens[self._held(r)], ens_r)
+        _adopt_gens(baro, baro_r)
 
     def replay(self) -> Dict[str, torch.Tensor]:
         """One segment: the graph's replay (its thermo copied out of the

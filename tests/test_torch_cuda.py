@@ -532,6 +532,54 @@ def test_an_overflow_escalation_builds_a_new_capture(dev, capsys):
     assert "atoms 216" in out and "graph captures 1, replays 2" in out
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("decomp,n_model", [("atoms", 1), ("slots", 2)])
+def test_dist_captured_outer_program_matches_eager_and_local_comm(
+        dev, decomp, n_model, tmp_path):
+    """One NCCL process per card (DistComm), 2 x n_model: the outer program
+    with each segment length captured once per process as a CUDA graph (2 x
+    5 steps, then 3), its ppermutes and all-reduces inside, against the
+    same program eager in those processes (thermo rtol 1e-6, positions by
+    minimum image within 1e-5 A) and against LocalComm's ranks on card 0
+    (thermo rtol 1e-5); each process launches the kernels 13 + 2 warm-up
+    steps times. With 2 processes, a capture that fails on rank 1 (its
+    recording reads a device value) raises on both, within the deadline."""
+    import _torch_dist_worker as worker
+    from repro_torch.md import comm
+
+    world = 2 * n_model
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} GPUs, one per NCCL process "
+                    f"({torch.cuda.device_count()} visible)")
+    worker.spawn(worker.nccl_worker,
+                 (worker.free_port(), str(tmp_path), n_model, decomp), world,
+                 300)
+    runs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    lc = comm.LocalComm(2, n_model, device=dev)
+    want_state, want, _, _ = worker.card_case(lc, dev, decomp, False)
+    boxt = torch.tensor(np.asarray(worker._system()[0].box, np.float32))
+    for r, run in enumerate(runs):
+        eager, graph = run[False], run[True]
+        assert eager["launches"] == (13, 13), (r, eager["launches"])
+        assert graph["launches"] == (15, 15), (r, graph["launches"])
+        assert (graph["captures"], graph["replays"]) == (2, 3), r
+        for k in ("pe", "ke"):
+            np.testing.assert_allclose(graph["thermo"][k],
+                                       eager["thermo"][k], rtol=1e-6)
+            np.testing.assert_allclose(graph["thermo"][k], want[k],
+                                       rtol=1e-5)
+        np.testing.assert_array_equal(graph["thermo"]["n_atoms"], 216)
+        a, b = graph["state"], eager["state"]
+        assert torch.equal(a.mask, b.mask)
+        d = a.pos - b.pos
+        assert float((d - boxt * torch.round(d / boxt)).abs().max()) < 1e-5
+    if n_model == 1:
+        errors = [run["failure"] for run in runs]
+        assert errors[0] == "the segment's capture failed on another process"
+        assert errors[1] is not None and "another process" not in errors[1]
+
+
 # ------------------------------------------------------------- DP training
 
 @pytest.mark.cuda

@@ -18,10 +18,8 @@ rest at dt = 1e-3 gives v = dt/2 F/m and the carried force is F.
 """
 
 import os
-import socket
 import sys
 import threading
-import time
 
 import jax
 import jax.numpy as jnp
@@ -581,30 +579,16 @@ def test_md_run_cli_on_the_cpu(capsys, monkeypatch):
         md_run.main(["--local-ranks", "4"])
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("decomp,n_model", [("atoms", 1), ("slots", 2)])
 def test_dist_comm_on_gloo_equals_local_comm(decomp, n_model, tmp_path):
     """2 x n_model gloo processes (DistComm) against as many threads
     (LocalComm): the same per-brick code, the same trajectory bit for bit.
     The (2,) x 2 slots grid holds the model-axis subgroups and the T sum
     with its identity backward (psum_same_grad) over gloo."""
-    ctx = torch.multiprocessing.start_processes(
+    _torch_dist_worker.spawn(
         _torch_dist_worker.worker,
-        args=(_free_port(), str(tmp_path), n_model, decomp),
-        nprocs=2 * n_model, join=False, start_method="spawn")
-    deadline = time.monotonic() + 240
-    try:
-        while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "gloo ranks did not finish"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
+        (_torch_dist_worker.free_port(), str(tmp_path), n_model, decomp),
+        2 * n_model, 240)
     got = np.load(tmp_path / "dist.npz")
     lc = comm.LocalComm(2, n_model, device=CPU)
     st, th = _torch_dist_worker.dist_case(lc, decomp)

@@ -2,15 +2,23 @@
 (``repro_torch.md.domain.StaticSegment``).
 
 On the card :meth:`OuterMDProgram.run` records one segment of every rank
-(migration sweeps, then the steps) as a CUDA graph over static carry
-buffers and replays it. Here the same segment function runs eagerly
-against its own buffers: three calls equal three segments of the eager
-program bit for bit, each rank draws from persistent generators of its own
-(a restored state draws the same noise again), and no op of a segment
-reads a device value on the host, which a capture would refuse.
+this process runs (migration sweeps, then the steps) as a CUDA graph over
+static carry buffers and replays it: all ranks of a ``LocalComm``, the one
+rank of a ``DistComm`` process. Here the same segment function runs
+eagerly against its own buffers: three calls equal three segments of the
+eager program bit for bit, each rank draws from persistent generators of
+its own (a restored state draws the same noise again), and no op of a
+segment reads a device value on the host, which a capture would refuse.
+Under ``DistComm`` the same holds on gloo processes (worker in
+``tests/_torch_dist_worker.py``), against ``LocalComm`` too, with every
+process escalating together and a capture that fails on one process
+raising on all of them.
 """
 
 import gc
+import os
+import subprocess
+import sys
 import weakref
 
 import numpy as np
@@ -18,12 +26,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
 from repro_torch.core import dp_model  # noqa: E402
 from repro_torch.core.types import DPConfig  # noqa: E402
 from repro_torch.md import (  # noqa: E402
     api, comm, domain, integrator, lattice, stepper)
+
+import _torch_dist_worker as worker  # noqa: E402
+from _torch_dist_worker import NoHostSync  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -169,31 +178,28 @@ def test_a_dropped_program_takes_its_segments_along():
         gc.enable()
 
 
-_aten = torch.ops.aten
-# ops that read a device value on the host or size their output by data
-_SYNCS = {_aten._local_scalar_dense, _aten.item, _aten.nonzero,
-          _aten.masked_select, _aten._unique2, _aten.unique_consecutive,
-          _aten.unique_dim}
-_COPIES = {_aten._to_copy, _aten.copy_, _aten._copy_from}
-
-
-class NoHostSync(TorchDispatchMode):
-    """Raises on an op that would make the host wait for the device: a
-    scalar read, an output sized by the data, a copy to the host."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        packet = func.overloadpacket
-        if packet in _SYNCS:
-            raise AssertionError(f"host sync: {func}")
-        if packet in _COPIES:
-            src = args[0] if packet is _aten._to_copy else args[1]
-            dst = (kwargs.get("device") if packet is _aten._to_copy
-                   else args[0].device)
-            if (dst is not None and torch.device(dst).type == "cpu"
-                    and src.device.type != "cpu"):
-                raise AssertionError(f"copy to the host: {func}")
-        return func(*args, **kwargs)
+def test_release_graphs_drops_every_recorded_graph(monkeypatch):
+    """NCCL destroys no communicator while a graph that recorded its calls
+    lives, and a failed run's frames may still hold its programs:
+    ``release_graphs`` drops the graph of every live segment (which then
+    runs eagerly), and the registry keeps no segment alive."""
+    spec, state0, boxt = _setup()
+    prog = _program(spec, comm.LocalComm(spec.n_slabs, 2, device=CPU),
+                    "langevin")
+    ens = prog.init_ensemble_state(CPU)
+    seg = domain.StaticSegment(prog, {}, (state0, ens, boxt, ()), 3)
+    graph = object()
+    monkeypatch.setattr(stepper, "capture_graph",
+                        lambda *a, **k: (graph, {}, (0, 0)))
+    seg.capture()
+    assert seg.graph is graph
+    domain.release_graphs()
+    assert seg.graph is None
+    seg.capture()
+    ref = weakref.ref(seg)
+    del seg
+    gc.collect()
+    assert ref() is None
 
 
 class GuardedComm(comm.LocalComm):
@@ -229,3 +235,109 @@ def test_a_segment_reads_nothing_on_the_host(kind, params):
     domain.check_segment_thermo(th)
     assert th["pe"].shape == (1, 2)
     assert int(seg.state.mask.sum()) == int(state0.mask.sum())
+
+
+# ------------------------------------------------ one process per rank (gloo)
+
+_SPAWNED = {}
+
+
+def _spawned(n_model, decomp, tmp_path_factory):
+    """The capture worker's results, rank by rank, for 2 x ``n_model``
+    gloo processes (spawned once per grid); the 2-process grid runs the
+    guard, escalation and failure cases too."""
+    key = (n_model, decomp)
+    if key not in _SPAWNED:
+        out = tmp_path_factory.mktemp(f"dist_capture_{n_model}")
+        worker.spawn(worker.capture_worker,
+                     (worker.free_port(), str(out), n_model, decomp,
+                      n_model == 1), 2 * n_model, 180)
+        _SPAWNED[key] = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                         for r in range(2 * n_model)]
+    return _SPAWNED[key]
+
+
+def _equal_whole(a, b):
+    for f, x, y in zip(domain.SlabState._fields, a, b):
+        assert torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("kind", ["nve", "langevin"])
+@pytest.mark.parametrize("decomp,n_model", [("atoms", 1), ("slots", 2)])
+def test_dist_static_segment_equals_eager_dist_comm_and_local_comm(
+        decomp, n_model, kind, tmp_path_factory):
+    """Each gloo process's segment (its own rank's, on its static buffers),
+    called three times, against three segments of the eager DistComm
+    program in that process (bit for bit, checked there: states, box,
+    thermo, generators), and the gathered result against the same segment
+    on a LocalComm of the same grid, bit for bit. In the (2,) x 2 slots
+    grid, model shard 1's rank is not its brick's lowest."""
+    runs = _spawned(n_model, decomp, tmp_path_factory)
+    for r, got in enumerate(runs):
+        assert got[kind][1] == [], (r, got[kind][1])
+    lc = comm.LocalComm(2, n_model, device=CPU)
+    want, bad = worker.static_case(lc, decomp, kind)
+    assert bad == []
+    got = runs[0][kind][0]
+    _equal_whole(got["state"], want["state"])
+    for k in ("pe", "ke"):
+        assert torch.equal(got[k], want[k]), k
+    # each process's brick's generators == LocalComm's for that brick
+    for r, run in enumerate(runs):
+        b = r // n_model
+        assert all(torch.equal(x, y) for x, y in zip(
+            run[kind][0]["gens"], want["gens"][b:b + 1])), r
+
+
+def test_dist_segment_reads_nothing_on_the_host(tmp_path_factory):
+    """Under DistComm, one segment of each process's rank runs under the
+    dispatch mode that refuses host reads, gloo calls included."""
+    for r, got in enumerate(_spawned(1, "atoms", tmp_path_factory)):
+        assert got["guard"] == [], (r, got["guard"])
+
+
+def test_dist_overflow_escalates_every_process_together(tmp_path_factory):
+    """A halo capacity too small for the bricks, through the captured
+    path's control flow: every process sees the same flags, escalates the
+    same times and builds a new program (a capture and a replay each), and
+    the passing run equals LocalComm's escalation bit for bit."""
+    runs = _spawned(1, "atoms", tmp_path_factory)
+    esc = [got["escalation"] for got in runs]
+    assert len(esc[0]["tried"]) >= 2
+    assert all(e["tried"] == esc[0]["tried"] for e in esc)
+    assert all(e["counts"] == [(1, 1)] * len(esc[0]["tried"]) for e in esc)
+    want = worker.escalation_case(comm.LocalComm(2, 1, device=CPU))
+    assert want["tried"] == esc[0]["tried"]
+    assert torch.equal(esc[0]["pe"], want["pe"])
+    _equal_whole(esc[0]["state"], want["state"])
+
+
+@pytest.mark.parametrize("where", ["warm-up", "capture"])
+def test_dist_failed_capture_raises_on_every_process(where,
+                                                     tmp_path_factory):
+    """Rank 1's capture fails (after its warm-up's collectives, or in its
+    recording): rank 1 raises its own error and rank 0, which got through,
+    raises too, before any replay, within the spawn's deadline."""
+    runs = _spawned(1, "atoms", tmp_path_factory)
+    errors = [got[f"fail_{where}"] for got in runs]
+    assert "refused on this process" in errors[1]
+    assert errors[0] == f"the segment's {where} failed on another process"
+
+
+def test_md_run_under_torchrun_counts_every_process(tmp_path):
+    """md_run under torchrun on 2 gloo processes: the outer engine stays
+    eager on the CPU and the last line sums the captures, replays and
+    capture seconds over both processes (0 here), gathered once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"),
+        OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.md_run",
+         "--device", "cpu", "--nx", "6", "--nyz", "3", "--steps", "4",
+         "--rebuild-every", "2", "--potential", "lj"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert r.stdout.count("us/step/atom") == 1
+    assert ("graph captures 0, replays 0, capture 0.000 s over 2 processes"
+            in r.stdout), r.stdout
