@@ -25,17 +25,22 @@ The engines agree on the physics: within the skin buffer every pair inside
 rcut is in both lists and pairs beyond rcut contribute exactly zero.
 
 ``run_md`` remains as a DEPRECATED thin shim over the spec API.
+
+Each call is one ``md.call`` root of the span recorder (``repro_torch.obs``),
+with ``model.first_force``, ``driver.loop`` and ``md.result`` inside it and
+each engine's own spans inside the loop; ``wall_s`` is the loop span's
+duration.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.types import DPConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.md import api, integrator, lattice, neighbors, stepper
@@ -46,7 +51,7 @@ class MDResult:
     thermo: List[Dict[str, float]]
     final_pos: np.ndarray
     final_vel: np.ndarray
-    wall_s: float
+    wall_s: float                 # the stepping loop (the driver.loop span)
     steps: int
     n_atoms: int
     engine: str = "scan"
@@ -75,6 +80,12 @@ class MDResult:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The final state's copies to the host."""
+    with obs.span("md.result"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 def run_md(cfg: Optional[DPConfig], params: Any, pos: np.ndarray,
@@ -118,7 +129,14 @@ def run_simulation(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
     """
     if spec.engine not in ("outer", "scan", "python"):
         raise ValueError(f"unknown engine {spec.engine!r}")
-    dev = resolve_device(device)
+    with obs.root("md.call", engine=spec.engine, steps=spec.steps,
+                  atoms=len(pos)):
+        return _simulate(spec, params, pos, typ, box, resolve_device(device))
+
+
+def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
+              typ: np.ndarray, box: np.ndarray,
+              dev: torch.device) -> MDResult:
     pot, ens_obj, baro = spec.potential, spec.ensemble, spec.barostat
     n = len(pos)
     masses = torch.as_tensor(lattice.masses_for(pot.type_map, np.asarray(typ)),
@@ -147,7 +165,10 @@ def run_simulation(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
     build = stepper.build_neighbors_escalating(
         pot.layout_cfg(), nspec, box_np, pos, typ, spec.escalation)
     pot_run = pot.with_layout(build.spec.sel)
-    _, f, _ = pot_run.energy_forces(params, pos, typ, build.nlist, box=boxt)
+    with obs.span("model.first_force"):
+        _, f, _ = pot_run.energy_forces(params, pos, typ, build.nlist,
+                                        box=boxt)
+        _sync(dev)
 
     if spec.engine == "outer":
         carry = stepper.OuterCarry(
@@ -172,55 +193,57 @@ def run_simulation(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
     grid_rebuilds = 0
     grid_key = stepper.grid_key_for(nspec, box_np)
     ref_box_escal = box_np      # box the last volume fold was taken against
-    _sync(dev)
-    t0 = time.perf_counter()
-    step_base = 0
-    for seg_len in stepper.segment_schedule(spec.steps, spec.rebuild_every):
-        if step_base > 0:
-            # segment boundary: rebuild at the current positions and the
-            # current (carried) box; the overflow check + escalation retry
-            # lives inside. With no barostat the box never moves, so it is
-            # not fetched.
-            if baro is not None:
-                box_now = carry.box.cpu().numpy().astype(float)
+    with obs.timed("driver.loop") as loop:
+        step_base = 0
+        for seg_len in stepper.segment_schedule(spec.steps,
+                                                spec.rebuild_every):
+            if step_base > 0:
+                # segment boundary: rebuild at the current positions and
+                # the current (carried) box; the overflow check +
+                # escalation retry lives inside. With no barostat the box
+                # never moves, so it is not fetched.
+                if baro is not None:
+                    box_now = carry.box.cpu().numpy().astype(float)
+                    host_syncs += 1
+                    key_now = stepper.grid_key_for(build.spec, box_now)
+                    if key_now != grid_key:
+                        grid_key = key_now
+                        grid_rebuilds += 1
+                else:
+                    box_now = box_np
+                build = stepper.build_neighbors_escalating(
+                    pot.layout_cfg(), build.spec, box_now, carry.pos, typ,
+                    spec.escalation,
+                    ref_box=ref_box_escal if baro is not None else None)
                 host_syncs += 1
-                key_now = stepper.grid_key_for(build.spec, box_now)
-                if key_now != grid_key:
-                    grid_key = key_now
-                    grid_rebuilds += 1
-            else:
-                box_now = box_np
-            build = stepper.build_neighbors_escalating(
-                pot.layout_cfg(), build.spec, box_now, carry.pos, typ,
-                spec.escalation,
-                ref_box=ref_box_escal if baro is not None else None)
+                overflow_checks += build.escalations + 1
+                overflow_worst = max(overflow_worst, build.overflow)
+                if build.escalations:
+                    escalations += build.escalations
+                    ref_box_escal = box_now
+                    pot_run = pot.with_layout(build.spec.sel)
+                    eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
+            with obs.span("driver.segment", steps=seg_len):
+                carry, th = eng.run(carry, seg_len, params, build.nlist, typ,
+                                    masses, spec.dt_fs)
+            # ONE device->host sync per segment fetches the stacked thermo
+            with obs.span("driver.fetch"):
+                th = stepper.fetch_thermo(th)
+            thermo.extend(stepper.thermo_rows(
+                th["pe"], th["ke"], step_base, spec.steps, spec.thermo_every,
+                n, press=th["press"], vol=th["vol"]))
+            stress_segs.append(th["stress"])
             host_syncs += 1
-            overflow_checks += build.escalations + 1
-            overflow_worst = max(overflow_worst, build.overflow)
-            if build.escalations:
-                escalations += build.escalations
-                ref_box_escal = box_now
-                pot_run = pot.with_layout(build.spec.sel)
-                eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
-        carry, th = eng.run(carry, seg_len, params, build.nlist, typ,
-                            masses, spec.dt_fs)
-        # ONE device->host sync per segment fetches the stacked thermo
-        th = stepper.fetch_thermo(th)
-        thermo.extend(stepper.thermo_rows(
-            th["pe"], th["ke"], step_base, spec.steps, spec.thermo_every, n,
-            press=th["press"], vol=th["vol"]))
-        stress_segs.append(th["stress"])
-        host_syncs += 1
-        step_base += seg_len
-    _sync(dev)
-    wall = time.perf_counter() - t0
-    return MDResult(thermo=thermo, final_pos=carry.pos.cpu().numpy(),
-                    final_vel=carry.vel.cpu().numpy(), wall_s=wall,
+            step_base += seg_len
+        _sync(dev)
+    final_pos, final_vel, final_box = _to_host(carry.pos, carry.vel, carry.box)
+    return MDResult(thermo=thermo, final_pos=final_pos,
+                    final_vel=final_vel, wall_s=loop.seconds,
                     steps=spec.steps, n_atoms=n, engine="scan",
                     escalations=escalations, host_syncs=host_syncs,
                     overflow_checks=overflow_checks,
                     overflow_worst=overflow_worst,
-                    final_box=carry.box.cpu().numpy(),
+                    final_box=final_box,
                     stress=(np.concatenate(stress_segs)
                             if stress_segs else None),
                     grid_rebuilds=grid_rebuilds, sel=tuple(build.spec.sel))
@@ -258,83 +281,88 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
     host_syncs = 1                      # initial build's overflow check
     overflow_checks = build.escalations + 1
     overflow_worst = build.overflow
-    _sync(dev)
-    t0 = time.perf_counter()
-    step_base = 0
-    for n_segs, seg_len in stepper.chunk_schedule(steps, rebuild_every,
-                                                  chunk_segments):
-        for _ in range(policy.max_attempts + 1):
-            key = (spec_n, grid_key)
-            if key not in engines:
-                engines[key] = stepper.md_outer_engine(
-                    pot.with_layout(spec_n.sel), ens_obj, spec_n, grid_key,
-                    barostat)
-            snap = stepper.snapshot(carry)      # chunk entry, for a replay
-            out, th = engines[key].run(carry, n_segs, seg_len, params, typ,
-                                       masses, dt_fs)
-            # THE host sync of this chunk: thermo, overflow flag and box
-            th["overflow"] = out.overflow.reshape(1).expand(n_segs)
-            th["box"] = out.box.reshape(1, 3).expand(n_segs, 3)
-            host = stepper.fetch_thermo(th)
-            ovf = int(host["overflow"][0])
-            box_out = host["box"][0].astype(float)
-            host_syncs += 1
-            overflow_checks += 1
-            if ovf >= int(neighbors.GRID_INVALID):
-                # geometry, not capacity: the carried box outgrew the static
-                # cell grid mid-chunk. Re-derive from the post-chunk box
-                # (coarser counts from a smaller box keep every cell >= rcut
-                # for the chunk's larger early boxes too); a box that dipped
-                # and recovered reproduces the old key, so coarsen by one.
-                key_new = stepper.grid_key_for(spec_n, box_out)
-                if key_new == grid_key:
-                    key_new = tuple(max(1, k - 1) for k in grid_key)
-                grid_key = key_new
-                grid_rebuilds += 1
+    with obs.timed("driver.loop") as loop:
+        step_base = 0
+        for n_segs, seg_len in stepper.chunk_schedule(steps, rebuild_every,
+                                                      chunk_segments):
+            for attempt in range(policy.max_attempts + 1):
+                with obs.span("outer.chunk", attempt=attempt, segments=n_segs):
+                    key = (spec_n, grid_key)
+                    if key not in engines:
+                        engines[key] = stepper.md_outer_engine(
+                            pot.with_layout(spec_n.sel), ens_obj, spec_n,
+                            grid_key, barostat)
+                    snap = stepper.snapshot(carry)   # for a replay
+                    out, th = engines[key].run(carry, n_segs, seg_len,
+                                               params, typ, masses, dt_fs)
+                    # THE host sync of this chunk: thermo, flag and box
+                    th["overflow"] = out.overflow.reshape(1).expand(n_segs)
+                    th["box"] = out.box.reshape(1, 3).expand(n_segs, 3)
+                    with obs.span("outer.fetch"):
+                        host = stepper.fetch_thermo(th)
+                ovf = int(host["overflow"][0])
+                box_out = host["box"][0].astype(float)
+                host_syncs += 1
+                overflow_checks += 1
+                if ovf >= int(neighbors.GRID_INVALID):
+                    # geometry, not capacity: the carried box outgrew the
+                    # static cell grid mid-chunk. Re-derive from the
+                    # post-chunk box (coarser counts from a smaller box keep
+                    # every cell >= rcut for the chunk's larger early boxes
+                    # too); a box that dipped and recovered reproduces the
+                    # old key, so coarsen by one.
+                    key_new = stepper.grid_key_for(spec_n, box_out)
+                    if key_new == grid_key:
+                        key_new = tuple(max(1, k - 1) for k in grid_key)
+                    grid_key = key_new
+                    grid_rebuilds += 1
+                else:
+                    overflow_worst = max(overflow_worst, ovf)
+                    if ovf <= 0:
+                        carry = out
+                        break
+                    # fold the carried-box volume ratio into the growth,
+                    # then advance the reference box: a later retry folds
+                    # only ADDITIONAL shrink
+                    vol_scale = policy.volume_scale(ref_box_escal, box_out)
+                    ref_box_escal = box_out
+                    spec_n = dataclasses.replace(
+                        spec_n,
+                        sel=tuple(policy.grow(s, vol_scale)
+                                  for s in spec_n.sel),
+                        cell_capacity=policy.grow(spec_n.cell_capacity,
+                                                  vol_scale))
+                    escalations += 1
+                with obs.span("outer.restore"):
+                    carry = stepper.restore(snap)
             else:
-                overflow_worst = max(overflow_worst, ovf)
-                if ovf <= 0:
-                    carry = out
-                    break
-                # fold the carried-box volume ratio into the growth, then
-                # advance the reference box: a later retry folds only
-                # ADDITIONAL shrink
-                vol_scale = policy.volume_scale(ref_box_escal, box_out)
-                ref_box_escal = box_out
-                spec_n = dataclasses.replace(
-                    spec_n,
-                    sel=tuple(policy.grow(s, vol_scale) for s in spec_n.sel),
-                    cell_capacity=policy.grow(spec_n.cell_capacity,
-                                              vol_scale))
-                escalations += 1
-            carry = stepper.restore(snap)
-        else:
-            raise RuntimeError(
-                f"neighbor capacity overflow persists after "
-                f"{policy.max_attempts} chunk replays (last spec: "
-                f"sel={spec_n.sel}, cell_capacity={spec_n.cell_capacity})")
-        # thermo for the whole chunk arrives stacked (n_segs, seg_len)
-        thermo.extend(stepper.thermo_rows(
-            host["pe"].reshape(-1), host["ke"].reshape(-1), step_base, steps,
-            thermo_every, n, press=host["press"].reshape(-1),
-            vol=host["vol"].reshape(-1)))
-        stress_chunks.append(host["stress"].reshape(-1, 3, 3))
-        step_base += n_segs * seg_len
-    _sync(dev)
-    wall = time.perf_counter() - t0
-    return MDResult(thermo=thermo, final_pos=carry.pos.cpu().numpy(),
-                    final_vel=carry.vel.cpu().numpy(), wall_s=wall,
+                raise RuntimeError(
+                    f"neighbor capacity overflow persists after "
+                    f"{policy.max_attempts} chunk replays (last spec: "
+                    f"sel={spec_n.sel}, cell_capacity={spec_n.cell_capacity})")
+            # thermo for the whole chunk arrives stacked (n_segs, seg_len)
+            thermo.extend(stepper.thermo_rows(
+                host["pe"].reshape(-1), host["ke"].reshape(-1), step_base,
+                steps, thermo_every, n, press=host["press"].reshape(-1),
+                vol=host["vol"].reshape(-1)))
+            stress_chunks.append(host["stress"].reshape(-1, 3, 3))
+            step_base += n_segs * seg_len
+        _sync(dev)
+    final_pos, final_vel, final_box = _to_host(carry.pos, carry.vel, carry.box)
+    return MDResult(thermo=thermo, final_pos=final_pos,
+                    final_vel=final_vel, wall_s=loop.seconds,
                     steps=steps, n_atoms=n, engine="outer",
                     escalations=escalations, host_syncs=host_syncs,
                     overflow_checks=overflow_checks,
                     overflow_worst=overflow_worst,
-                    final_box=carry.box.cpu().numpy(),
+                    final_box=final_box,
                     stress=(np.concatenate(stress_chunks)
                             if stress_chunks else None),
                     grid_rebuilds=grid_rebuilds, sel=tuple(spec_n.sel),
                     graph_captures=sum(e.captures for e in engines.values()),
                     graph_replays=sum(e.replays for e in engines.values()),
-                    capture_s=sum(e.capture_s for e in engines.values()))
+                    capture_s=sum(e.capture_ns
+                                  for e in engines.values()) * 1e-9)
 
 
 def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
@@ -359,15 +387,15 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
     overflow_worst = int(ovf)
     if overflow_worst > 0:
         raise RuntimeError(f"neighbor overflow {overflow_worst} at init")
-    e, f, _ = pot.energy_forces(params, pos, typ, nlist, box=boxt)
+    with obs.span("model.first_force"):
+        e, f, _ = pot.energy_forces(params, pos, typ, nlist, box=boxt)
+        _sync(dev)
 
     thermo: List[Dict[str, float]] = []
     stress_steps = []
     ovf_flags = []
     grid_rebuilds = 0
-    _sync(dev)
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    with obs.timed("driver.loop") as loop, torch.no_grad():
         for step in range(steps):
             vel = ens_obj.half_kick(vel, f, masses, dt_fs)
             pos = ens_obj.drift(pos, vel, dt_fs, boxt)
@@ -409,8 +437,7 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
             if barostat is not None:
                 boxt, pos, vel, baro = barostat.apply(boxt, pos, vel, stress,
                                                       baro, dt_fs)
-    _sync(dev)
-    wall = time.perf_counter() - t0
+        _sync(dev)
     if ovf_flags:
         # ONE deferred fetch inspects every rebuild's flag after the run
         worst = int(torch.stack(ovf_flags).max())
@@ -418,13 +445,15 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
         overflow_worst = max(overflow_worst, worst)
         if worst > 0:
             raise RuntimeError(f"neighbor overflow {worst} during run")
-    return MDResult(thermo=thermo, final_pos=pos.cpu().numpy(),
-                    final_vel=vel.cpu().numpy(), wall_s=wall, steps=steps,
+    stress = [torch.stack(stress_steps)] if stress_steps else []
+    final_pos, final_vel, final_box, *stress = _to_host(pos, vel, boxt,
+                                                        *stress)
+    return MDResult(thermo=thermo, final_pos=final_pos,
+                    final_vel=final_vel, wall_s=loop.seconds, steps=steps,
                     n_atoms=pos.shape[0], engine="python",
                     host_syncs=host_syncs,
                     overflow_checks=len(ovf_flags) + 1,
                     overflow_worst=overflow_worst,
-                    final_box=boxt.cpu().numpy(),
-                    stress=(torch.stack(stress_steps).cpu().numpy()
-                            if stress_steps else None),
+                    final_box=final_box,
+                    stress=stress[0] if stress else None,
                     grid_rebuilds=grid_rebuilds, sel=tuple(nspec.sel))

@@ -117,14 +117,22 @@ def make_cell_list_fn(spec: NeighborSpec, box: np.ndarray,
 
     Falls back to brute force when the reference box is too small for 3
     cells per dimension (min-image always uses the per-call box).
+
+    With ``parts=True`` the dynamic form also returns what the merged flag
+    is made of: a (2,) int32 tensor of the type sections' excess and the
+    cell bins' excess, or a (1,) one of the sections' alone on the
+    brute-force path, which has no bins.
     """
     ncell = np.maximum(np.floor(np.asarray(box, float) / spec.rcut_nbr)
                        .astype(int), 1)
     if np.any(ncell < 3):
         if dynamic_box:
-            def small_dyn_fn(pos, atype, box_t):
-                return brute_force_neighbors(pos, atype, spec, torch.as_tensor(
-                    box_t, dtype=pos.dtype, device=pos.device))
+            def small_dyn_fn(pos, atype, box_t, parts=False):
+                nlist, flag = brute_force_neighbors(
+                    pos, atype, spec, torch.as_tensor(
+                        box_t, dtype=pos.dtype, device=pos.device))
+                return (nlist, flag, flag.reshape(1)) if parts \
+                    else (nlist, flag)
             return small_dyn_fn
 
         def small_fn(pos, atype):
@@ -141,7 +149,7 @@ def make_cell_list_fn(spec: NeighborSpec, box: np.ndarray,
     # them and a captured call finds them here
     consts = {}
 
-    def core(pos, atype, box_t):
+    def core(pos, atype, box_t, parts=False):
         n = pos.shape[0]
         dev = pos.device
         cap = spec.cell_capacity
@@ -187,12 +195,15 @@ def make_cell_list_fn(spec: NeighborSpec, box: np.ndarray,
         nlist, sec_overflow = _pack_sections(
             cand, d2, ctype, spec, spec.rcut_nbr ** 2)
         overflow = torch.maximum(sec_overflow, cell_overflow)
-        return nlist, torch.maximum(overflow, grid_bad * int(GRID_INVALID))
+        flag = torch.maximum(overflow, grid_bad * int(GRID_INVALID))
+        if parts:
+            return nlist, flag, torch.stack([sec_overflow, cell_overflow])
+        return nlist, flag
 
     if dynamic_box:
-        def dyn_fn(pos, atype, box_t):
+        def dyn_fn(pos, atype, box_t, parts=False):
             return core(pos, atype, torch.as_tensor(
-                box_t, dtype=pos.dtype, device=pos.device))
+                box_t, dtype=pos.dtype, device=pos.device), parts)
         return dyn_fn
 
     def fn(pos, atype):

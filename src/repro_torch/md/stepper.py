@@ -25,12 +25,12 @@ thermostat, and the thermo streams the stress tensor, pressure and volume.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.types import DPConfig
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 from repro_torch.md import api, integrator, neighbors
@@ -172,6 +172,11 @@ def build_neighbors_escalating(
     derived from ``box`` on every call. ``ref_box`` (the box the last
     volume fold was taken against) folds the carried-box volume ratio into
     the first escalation.
+
+    Each attempt is an ``nbr.build`` span. Its counters say what overflowed
+    (``section_excess``, ``bin_excess``: > 0 where a type section or a cell
+    bin ran out; ``bin_excess`` None on the brute-force path) and how many
+    slots the list ``filled``; they come to the host in the flag's fetch.
     """
     policy = policy or EscalationPolicy()
     box_np = np.asarray(box, float).reshape(-1)
@@ -180,10 +185,20 @@ def build_neighbors_escalating(
              if ref_box is not None else 1.0)
     escalations = 0
     worst = None
-    for _ in range(policy.max_attempts):
-        fn = _dyn_cell_list_fn(spec, grid_key_for(spec, box_np))
-        nlist, ovf = fn(pos, typ, box_t)
-        ovf = int(ovf)
+    for attempt in range(policy.max_attempts):
+        with obs.span("nbr.build", attempt=attempt, atoms=int(pos.shape[0]),
+                      sel=tuple(spec.sel),
+                      cell_capacity=spec.cell_capacity) as sp:
+            fn = _dyn_cell_list_fn(spec, grid_key_for(spec, box_np))
+            nlist, ovf, parts = fn(pos, typ, box_t, parts=True)
+            # the flag, its parts and the filled slots in one fetch
+            got = torch.cat([ovf.reshape(1).to(torch.int64),
+                             parts.to(torch.int64),
+                             (nlist >= 0).sum().reshape(1)]).tolist()
+            ovf = got[0]
+            sp.set(overflow=ovf, section_excess=got[1],
+                   bin_excess=got[2] if len(got) == 4 else None,
+                   filled=got[-1])
         worst = ovf if worst is None else max(worst, ovf)
         if ovf <= 0:
             cfg_run = (cfg if tuple(spec.sel) == tuple(cfg.sel)
@@ -444,7 +459,7 @@ class OuterEngine:
         self._graphs: Dict[int, _CapturedSegment] = {}
         self.captures = 0
         self.replays = 0
-        self.capture_s = 0.0
+        self.capture_ns = 0     # the outer.capture spans' time
 
     def run(self, carry: OuterCarry, n_segments: int, seg_len: int,
             *aux: Any):
@@ -460,18 +475,19 @@ class OuterEngine:
                     raise ValueError("the captured segment was recorded for "
                                      "other params/types/masses/dt")
                 if seg is None:
-                    t0 = time.perf_counter()
-                    # segments of one engine share one memory pool
-                    pool = next((g.graph.pool()
-                                 for g in self._graphs.values()), None)
-                    seg = _CapturedSegment(self._seg_fn, carry, seg_len, aux,
-                                           pool)
+                    with obs.timed("outer.capture", steps=seg_len) as cap:
+                        # segments of one engine share one memory pool
+                        pool = next((g.graph.pool()
+                                     for g in self._graphs.values()), None)
+                        seg = _CapturedSegment(self._seg_fn, carry, seg_len,
+                                               aux, pool)
                     self._graphs[seg_len] = seg
                     self.captures += 1
-                    self.capture_s += time.perf_counter() - t0
+                    self.capture_ns += cap.ns
                 seg.load(carry)
                 for _ in range(n_segments):
-                    outs.append(seg.replay())
+                    with obs.span("outer.replay"):
+                        outs.append(seg.replay())
                     self.replays += 1
                 carry = seg.static
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

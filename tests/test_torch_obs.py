@@ -1,0 +1,299 @@
+"""The port's span recorder (``repro_torch.obs``) and the spans and counters
+of the single-process driver.
+
+The recorder alone (nesting, call ids, threads, its bound, disabled), then
+``run_simulation`` on a small FCC crystal under a Lennard-Jones potential
+with each engine: each call's spans, the loop and capture spans against
+``wall_s`` and ``capture_s``, the neighbour counters that say which
+capacity overflowed, and the same results with the recorder disabled.
+
+The last test needs an NVIDIA GPU and skips without one: with a profiler
+over a captured run, the profile holds no row of the port's spans, and on
+the profiler's timebase each ``outer.replay`` span holds its graph launch.
+The file imports no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_obs.py
+"""
+
+import functools
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import obs  # noqa: E402
+from repro_torch.md import api, lattice, neighbors, stepper  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+# several pytest workers share the cores; the tensors here are small
+torch.set_num_threads(1)
+
+ENGINES = ("scan", "outer", "python")
+# every call's spans, by engine; the outer engine on a card adds
+# outer.capture and outer.replay
+SPANS = {
+    "scan": {"nbr.build", "model.first_force", "driver.loop",
+             "driver.segment", "driver.fetch", "md.result"},
+    "outer": {"nbr.build", "model.first_force", "driver.loop",
+              "outer.chunk", "outer.fetch", "md.result"},
+    "python": {"model.first_force", "driver.loop", "md.result"},
+}
+
+
+@pytest.fixture(autouse=True)
+def fresh_recorder():
+    obs.reset()
+    obs.enable()
+    yield
+    obs.reset()
+    obs.enable()
+
+
+def _system():
+    """256 Cu atoms, 3 cells of 4.85 A a side at rcut 4 + skin 0.5: 42
+    neighbours an atom, about 10 atoms a cell."""
+    return lattice.fcc_copper(4, 4, 4)
+
+
+def _run(engine, sel=(48,), device="cpu", steps=12, seed=0):
+    pos, typ, box = _system()
+    spec = api.SimulationSpec(
+        api.LJPotential(rcut_lj=4.0, sel=sel), api.NVE(), steps=steps,
+        rebuild_every=5, thermo_every=1, skin=0.5, seed=seed, engine=engine,
+        chunk_segments=2)
+    return api.Simulation(spec).run({}, pos, typ, box, device=device)
+
+
+def _small_bins(monkeypatch, capacity):
+    monkeypatch.setattr(neighbors, "NeighborSpec", functools.partial(
+        neighbors.NeighborSpec, cell_capacity=capacity))
+
+
+# --------------------------------------------------------------- recorder
+
+def test_spans_nest_under_their_parents_and_their_call():
+    with obs.span("outside") as a:
+        pass
+    with obs.root("call", n=1) as r:
+        with obs.span("outer") as o:
+            with obs.span("inner", k=2) as i:
+                i.set(filled=7)
+    recs = {x.name: x for x in obs.records()}
+    assert recs["outside"].call is None and recs["outside"].parent is None
+    assert recs["call"].id == recs["call"].call == r.id
+    assert recs["outer"].parent == r.id and recs["inner"].parent == o.id
+    assert recs["inner"].call == recs["outer"].call == r.id
+    assert recs["inner"].attrs == {"k": 2, "filled": 7}
+    assert len(recs["call"].attrs["clock"]) == 2
+    assert [x.name for x in obs.records()] == ["outside", "inner", "outer",
+                                               "call"]
+    assert recs["outer"].t0_ns <= recs["inner"].t0_ns \
+        <= recs["inner"].t1_ns <= recs["outer"].t1_ns
+    (call,) = obs.calls(5)
+    assert call.root.name == "call" and call.lost == 0
+    assert [s.name for s in call.spans] == ["inner", "outer"]
+    assert a.ns >= 0
+
+
+def test_calls_returns_the_last_k_in_order():
+    for i in range(4):
+        with obs.root("call", i=i):
+            with obs.span("work"):
+                pass
+    got = obs.calls(2)
+    assert [c.root.attrs["i"] for c in got] == [2, 3]
+    assert all(len(c.spans) == 1 and c.lost == 0 for c in got)
+    assert obs.calls(0) == []
+
+
+def test_each_thread_keeps_its_own_stack():
+    ready = threading.Barrier(2)
+
+    def worker(tag):
+        with obs.root("call", tag=tag):
+            ready.wait()
+            for _ in range(50):
+                with obs.span("step", tag=tag):
+                    pass
+            ready.wait()
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    calls = obs.calls(2)
+    assert len(calls) == 2
+    for c in calls:
+        assert c.lost == 0 and len(c.spans) == 50
+        assert {s.attrs["tag"] for s in c.spans} == {c.root.attrs["tag"]}
+        assert {s.parent for s in c.spans} == {c.root.id}
+        assert {s.thread for s in c.spans} == {c.root.thread}
+
+
+def test_the_bound_drops_the_oldest_and_a_call_counts_its_losses():
+    obs.reset(capacity=8)
+    with obs.root("call"):
+        for _ in range(10):
+            with obs.span("step"):
+                pass
+    assert len(obs.records()) == 8 and obs.dropped() == 3
+    (call,) = obs.calls(1)
+    assert len(call.spans) == 7 and call.lost == 3
+    with obs.root("next"):
+        pass
+    assert [c.root.name for c in obs.calls(2)] == ["call", "next"]
+    assert obs.calls(2)[1].lost == 0 and obs.dropped() == 4
+
+
+def test_a_disabled_recorder_records_nothing():
+    obs.disable()
+    with obs.root("call") as r:
+        with obs.span("work", a=1) as s:
+            s.set(b=2)
+        with obs.timed("loop") as t:
+            sum(range(1000))
+    assert obs.records() == [] and obs.calls(1) == []
+    assert r is s                                # the one shared no-op
+    assert t.ns > 0 and t.seconds == t.ns * 1e-9  # a timed span still times
+
+
+# ------------------------------------------------------------------ driver
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_each_call_has_its_spans_and_the_loop_is_wall_s(engine):
+    res = _run(engine)
+    (call,) = obs.calls(1)
+    assert call.lost == 0 and call.root.name == "md.call"
+    assert {k: call.root.attrs[k] for k in ("engine", "steps", "atoms")} \
+        == {"engine": engine, "steps": 12, "atoms": 256}
+    names = [s.name for s in call.spans]
+    assert set(names) == SPANS[engine]
+    for once in ("model.first_force", "driver.loop", "md.result"):
+        assert names.count(once) == 1
+    loop = [s for s in call.spans if s.name == "driver.loop"]
+    assert sum(s.ns for s in loop) * 1e-9 == res.wall_s
+    # every span lies inside the call, and the engine's own in the loop
+    inner = {"driver.segment", "driver.fetch", "outer.chunk", "outer.fetch"}
+    (lp,) = loop
+    for s in call.spans:
+        assert call.root.t0_ns <= s.t0_ns <= s.t1_ns <= call.root.t1_ns
+        if s.name in inner:
+            assert lp.t0_ns <= s.t0_ns <= s.t1_ns <= lp.t1_ns
+    captures = [s for s in call.spans if s.name == "outer.capture"]
+    assert sum(s.ns for s in captures) * 1e-9 == res.capture_s
+    if engine == "scan":    # a host build at each of the two boundaries
+        assert names.count("nbr.build") == 3
+        assert names.count("driver.segment") == 3
+    if engine == "outer":   # a chunk of 2 segments, then one of 2 steps
+        assert names.count("outer.chunk") == names.count("outer.fetch") == 2
+
+
+@pytest.mark.parametrize("engine", ["scan", "outer"])
+def test_small_cell_bins_count_a_bin_escalation(engine, monkeypatch):
+    _small_bins(monkeypatch, 8)
+    res = _run(engine)
+    (call,) = obs.calls(1)
+    builds = [s.attrs for s in call.spans if s.name == "nbr.build"]
+    first = [b for b in builds if b["overflow"] > 0]
+    assert res.escalations >= 1 and first
+    assert builds[0]["cell_capacity"] == 8 and builds[0]["bin_excess"] > 0
+    assert all(b["bin_excess"] > 0 and b["section_excess"] <= 0
+               for b in first)
+    assert all(b["overflow"] == max(b["bin_excess"], b["section_excess"])
+               for b in builds)
+
+
+@pytest.mark.parametrize("engine", ["scan", "outer"])
+def test_small_sections_count_a_section_escalation(engine):
+    res = _run(engine, sel=(24,))
+    (call,) = obs.calls(1)
+    builds = [s.attrs for s in call.spans if s.name == "nbr.build"]
+    over = [b for b in builds if b["overflow"] > 0]
+    assert res.escalations >= 1 and builds[0]["section_excess"] == 42 - 24
+    assert over and all(b["section_excess"] > 0 and b["bin_excess"] <= 0
+                        for b in over)
+    assert [b["attempt"] for b in builds[:len(over) + 1]] \
+        == list(range(len(over) + 1))
+    assert builds[len(over)]["sel"] == res.sel
+
+
+@pytest.mark.parametrize("cells", [3, 2], ids=["cell_list", "brute_force"])
+def test_filled_slots_are_the_lists(cells):
+    pos, typ, box = lattice.fcc_copper(cells + 1, cells + 1, cells + 1)
+    rng = np.random.default_rng(0)
+    pos = np.mod(pos + rng.normal(0, 0.1, pos.shape), box)
+    spec = neighbors.NeighborSpec(rcut_nbr=4.5 if cells == 3 else 6.0,
+                                  sel=(24,), cell_capacity=8)
+    cfg = api.LJPotential(rcut_lj=4.0, sel=(24,)).layout_cfg()
+    build = stepper.build_neighbors_escalating(
+        cfg, spec, box, torch.as_tensor(pos, dtype=torch.float32),
+        torch.as_tensor(typ))
+    builds = [r.attrs for r in obs.records() if r.name == "nbr.build"]
+    assert len(builds) == build.escalations + 1
+    assert builds[-1]["filled"] == int((build.nlist >= 0).sum())
+    assert builds[-1]["overflow"] <= 0 < builds[0]["overflow"]
+    if cells == 2:          # brute force: no bins to overflow
+        assert all(b["bin_excess"] is None for b in builds)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_results_are_the_same_with_the_recorder_disabled(engine,
+                                                         monkeypatch):
+    # escalations of both kinds, but the per-step loop takes no escalation
+    escalating = engine != "python"
+    if escalating:
+        _small_bins(monkeypatch, 8)
+    runs = []
+    for on in (True, False):
+        (obs.enable if on else obs.disable)()
+        runs.append(_run(engine, sel=(24,) if escalating else (48,), seed=3))
+    assert obs.calls(2)[-1].root.attrs["engine"] == engine
+    a, b = runs
+    assert a.thermo == b.thermo
+    for k in ("final_pos", "final_vel", "final_box", "stress"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    for k in ("host_syncs", "overflow_checks", "overflow_worst", "sel",
+              "escalations", "graph_captures", "graph_replays"):
+        assert getattr(a, k) == getattr(b, k), k
+
+
+# -------------------------------------------------------------- on a card
+
+@pytest.mark.cuda
+def test_no_profile_row_is_the_ports_and_replays_hold_their_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdbench import spans
+
+    _run("outer", device="cuda", steps=20)          # warms the card
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = _run("outer", device="cuda", steps=40)
+    (call,) = obs.calls(1)
+    mine = {s.name for s in call.spans} | {call.root.name}
+    assert {"outer.capture", "outer.replay"} <= mine
+    events = list(prof.events())
+    assert not [e.name for e in events if e.name in mine]
+    assert not [e.name for e in events
+                if getattr(e, "is_user_annotation", False)]
+    captures = [s for s in call.spans if s.name == "outer.capture"]
+    assert sum(s.ns for s in captures) * 1e-9 == res.capture_s > 0
+
+    start = spans.trace_start_ns(prof)
+    on_trace = spans.span_intervals([call], start)
+    replays = [(a, b) for a, b, n in on_trace if n == "outer.replay"]
+    launches = sorted((e.time_range.start, e.time_range.end) for e in events
+                      if e.name == "cudaGraphLaunch")
+    assert len(replays) == len(launches) == res.graph_replays > 0
+    for (a, b), (la, lb) in zip(sorted(replays), launches):
+        assert a - 100.0 <= la <= lb <= b + 100.0, (a, b, la, lb)
