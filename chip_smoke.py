@@ -20,14 +20,20 @@ Phases; any failure exits non-zero before the result line:
      materialises G (the yardstick; whole on the 4,096 rows, in 4,096-row
      chunks summed at the main path's and water's shapes; it is several
      calls, so the JSON line's ``library_ms`` is null). The JSON line
-     reports the main path's shape.
+     reports the main path's shape. Then the force-and-virial reduction
+     (``kernels/dp_fused/force.py``) at the benchmark cells' shapes (the
+     main path's escalated lists of 123,008 and 864 copper atoms and of
+     155,520 water atoms, random dE/dr_ij): one line each with the kernel,
+     the plain version (mask, index_add_, row sum, einsum), index_add_
+     alone and the byte bound.
   3. the main path: ``Simulation.run`` of the paper's copper protocol (NVE,
      330 K, 99 steps, rebuild every 50 with a 2 A skin) on fcc_copper(20,20,20)
      = 32,000 atoms at full COPPER_DP width, impl="cheb_pallas", engine
      "scan", weights random from a seed and Chebyshev-tabulated. Both kernels
-     must launch >= 100 times (1 fwd + 1 bwd per force evaluation), the
-     thermo must be finite and |d etot| per atom <= 1e-4 eV. A profile of
-     three force evaluations splits the device time by kernel.
+     and the force reduction must launch >= 100 times (once each per force
+     evaluation), the thermo must be finite and |d etot| per atom <= 1e-4
+     eV. A profile of three force evaluations splits the device time by
+     kernel.
   4. one energy_forces on fcc_copper(10,10,10): cheb_pallas against cheb on
      the card (energy rtol 1e-5, forces atol 5e-5).
   5. the main path through engine="outer": each segment (on-device rebuild
@@ -473,7 +479,67 @@ def phase_kernels(cfg, wcfg, params, dev):
                     sample=False, chunked_lib=True)
     del env_w, s_w
     torch.cuda.empty_cache()
+    force_cases(cfg, wcfg, dev)
     return main
+
+
+def force_case(label, cfg, pos, typ, box, dev, gen):
+    """The force-and-virial reduction at a cell's shape: the main path's
+    neighbour list of this box (escalated), random dE/dr_ij on its live
+    slots, the kernel against the plain version (mask, index_add_, row sum,
+    einsum) and timed against its byte bound, beside the plain version and
+    the ``index_add_`` call alone, the one PyTorch call of the composition
+    (PERF.md's ``library_ms``)."""
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.core import dp_model
+    from repro_torch.kernels.dp_fused import force
+    from repro_torch.md import neighbors, stepper
+
+    pos_t = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    typ_t = torch.as_tensor(typ, dtype=torch.int64, device=dev)
+    nspec = neighbors.NeighborSpec(rcut_nbr=cfg.rcut + 2.0, sel=cfg.sel)
+    nlist = stepper.build_neighbors_escalating(cfg, nspec, box, pos_t,
+                                               typ_t).nlist
+    with torch.no_grad():
+        rij, nmask = dp_model.gather_rij(pos_t, nlist,
+                                         stepper.pack_box(box, dev))
+    de = torch.randn(rij.shape, generator=gen, device=dev) * nmask[..., None]
+    a, n = nlist.shape
+    live = int(nmask.sum())
+    f, w = force.prod_force_virial(de, rij, nlist, a)
+    f_r, w_r = force.prod_force_virial_ref(de, rij, nlist, a)
+    log(f"[2] force reduction, {label}: A={a} S={n}, live slots {live} "
+        f"({live / (a * n):.1%})")
+    check_close("forces", f, f_r, 1e-4, 1e-5)
+    check_close("virial", w, w_r, 1e-4, 1e-5)
+    j = nlist.clamp(min=0).reshape(-1)
+    neg = -de.reshape(-1, 3)
+    ms = time_ms(lambda: force.prod_force_virial(de, rij, nlist, a), 20)
+    plain_ms = time_ms(lambda: force.prod_force_virial_ref(de, rij, nlist, a),
+                       3)
+    lib_ms = time_ms(lambda: torch.zeros_like(pos_t).index_add_(0, j, neg), 3)
+    # nlist read whole, de and rij on live slots, f written once
+    bound = (a * n * 8 + live * 24 + a * 12) / HW_H100.hbm_bw * 1e3
+    log(f"  prod_force_virial: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms "
+        f"| index_add_ alone {lib_ms:.4f} ms | bound {bound:.4f} ms (bytes)"
+        f" | {bound / ms:.1%} of bound")
+
+
+def force_cases(cfg, wcfg, dev):
+    """The force reduction at the benchmark cells' shapes: cu.weak's
+    123,008 copper atoms (one 1320-slot section after escalation), water's
+    155,520 atoms (two sections) and cu.strong's 864 copper atoms."""
+    from repro_torch.md import lattice
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    for label, (c, (pos, typ, box)) in {
+            "cu.weak": (cfg, lattice.fcc_copper(31, 31, 32)),
+            "water": (wcfg, lattice.water_box(9, 9, 10, seed=SEED)),
+            "cu.strong": (cfg, lattice.fcc_copper(6, 6, 6))}.items():
+        pos = np.mod(pos + rng.normal(0.0, 0.05, pos.shape), box)
+        force_case(label, c, pos, typ, box, dev, gen)
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 3
@@ -497,7 +563,11 @@ def phase_main_path(cfg, params, dev):
     log(f"    final sel {res.sel}, escalations {res.escalations}, host syncs"
         f" {res.host_syncs}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"    launches {launches}")
+    from repro_torch.kernels.dp_fused import force
+    log(f"    launches {launches}, prod_force_virial {force.force_launches}")
+    if force.force_launches < 100:
+        raise AssertionError(f"prod_force_virial launched "
+                             f"{force.force_launches} < 100 times")
     for row in res.thermo:
         log(f"    step {row['step']}: pe {row['pe']:.6f} ke {row['ke']:.6f} "
             f"etot {row['etot']:.6f} T {row['temp']:.3f} K")
@@ -586,8 +656,9 @@ def phase_rungs(cfg, params, dev):
     log(f"    one force evaluation: cheb_pallas "
         f"{', '.join(f'{x:.3f}' for x in wall['cheb_pallas'])} ms, cheb "
         f"{', '.join(f'{x:.3f}' for x in wall['cheb'])} ms")
-    # forces are scattered with index_add_ (atomics, order varies by run);
-    # the rungs also differ in f32 summation order: hence the tolerances
+    # the force reduction's neighbour-side sums are atomics (order varies
+    # by run); the rungs also differ in f32 summation order: hence the
+    # tolerances
     if not (torch.isfinite(f_k).all() and f_k.shape == pos_t.shape):
         raise AssertionError("bad forces from cheb_pallas")
     if de > 1e-5 * abs(float(e_c)) or df > 5e-5:
@@ -597,9 +668,10 @@ def phase_rungs(cfg, params, dev):
 # ------------------------------------------------------- phases 5-9 helpers
 
 def reset_launches():
-    from repro_torch.kernels.dp_fused import ops
+    from repro_torch.kernels.dp_fused import force, ops
     ops.fwd_launches = 0
     ops.bwd_launches = 0
+    force.force_launches = 0
 
 
 def read_launches():
@@ -638,7 +710,7 @@ def phase_outer(cfg, params, dev, scan):
     """The main path again through engine="outer": each segment (rebuild +
     steps) captured once as a CUDA graph and replayed. Held against phase
     3's scan run from the same seed: the runs differ only by the order of
-    index_add_'s atomics, so the slice's tolerances apply (thermo rtol
+    the force reduction's atomics, so the slice's tolerances apply (thermo rtol
     1e-5, positions 1e-4 A by minimum image, velocities 1e-5 A/fs)."""
     from repro_torch.md import api, lattice
 
@@ -839,7 +911,7 @@ def phase_quintic(cfg, params, dev):
         log(f"    quintic vs {ref_impl}: |dE|/|E| {de:.3e} (1e-4), max|dF| "
             f"{df:.3e} eV/A (5e-5 x {fmax:.2f}), max|dW| {dw:.3e} eV")
         # the tables approximate the net (the ladder's tolerances of the
-        # reference's tests), forces scatter with atomics
+        # reference's tests), the force reduction sums with atomics
         if not (torch.isfinite(f_q).all() and de <= 1e-4
                 and df <= 5e-5 * fmax):
             raise AssertionError(f"quintic disagrees with {ref_impl}")

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import descriptor, embedding, fitting, tabulation
 from repro_torch.core.types import DPConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dp_fused import force as force_ops
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 
 def _dtype(cfg: DPConfig) -> torch.dtype:
@@ -182,9 +183,11 @@ def energy_forces_from_rij(energy_of_rij, pos: torch.Tensor,
     W = -sum_ij r_ij (x) dE/dr_ij. The graph lives only inside this call:
     the returned tensors are detached.
 
-    Forces are scattered with ``index_add_``, which uses atomics on the card,
-    so their summation order (and last bits) varies from run to run. Padded
-    slots add their zero into atom 0, as in the reference.
+    The reduction to atoms is ``kernels.dp_fused.force.prod_force_virial``:
+    on the card a hand-written kernel whose neighbour-side sums are
+    atomics, so the forces' summation order (and last bits) varies from
+    run to run; on the CPU the plain version, where padded slots add their
+    zero into atom 0, as in the reference.
     """
     with torch.no_grad():
         rij, nmask = gather_rij(pos, nlist, box)
@@ -194,11 +197,8 @@ def energy_forces_from_rij(energy_of_rij, pos: torch.Tensor,
         (de_drij,) = torch.autograd.grad(e, rij)
 
     # Pair forces: f_ij = -dE/dr_ij acts on atom j, reaction +dE/dr_ij on i.
-    de = de_drij * nmask[..., None].to(de_drij.dtype)
-    j = torch.clamp(nlist, min=0).reshape(-1)
-    f = torch.zeros_like(pos).index_add_(0, j, -de.reshape(-1, 3))
-    f = f + de.sum(dim=1)
-    virial = -torch.einsum("ijk,ijl->kl", rij.detach(), de)
+    f, virial = force_ops.prod_force_virial(
+        de_drij.contiguous(), rij.detach(), nlist.contiguous(), pos.shape[0])
     return e.detach(), f, virial
 
 

@@ -1,8 +1,10 @@
-"""Build the dp_fused CUDA kernels with ``nvcc`` at first use and bind them.
+"""Build the port's CUDA kernels with ``nvcc`` at first use and bind them.
 
-The source ``csrc/dp_fused.cu`` has a plain C interface, so it compiles in
-seconds without PyTorch's headers. The shared library goes under
-``build/dp_fused/`` at the repository root, named by a hash of the source
+The sources ``csrc/dp_fused.cu`` (the fused tabulation + contraction pair)
+and ``csrc/prod_force_virial.cu`` (the force-and-virial reduction) have a
+plain C interface, so they compile in seconds without PyTorch's headers,
+in one ``nvcc`` call into one shared library. It goes under
+``build/dp_fused/`` at the repository root, named by a hash of the sources
 and the flags, and is loaded with ``ctypes``. Nothing is compiled or loaded
 when this module is imported: :func:`load` does it on the first launch.
 """
@@ -20,7 +22,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "dp_fused.cu"
+SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
+                for name in ("dp_fused.cu", "prod_force_virial.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "dp_fused"
 # -Xptxas -v makes nvcc report each kernel's registers, shared memory and
 # spills; the log is kept on the loaded library for the smoke run to print.
@@ -61,6 +64,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dp_fused_fwd.restype = i
     lib.dp_fused_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, p]
     lib.dp_fused_bwd.restype = i
+    lib.prod_force_virial.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                      ctypes.c_longlong, ctypes.c_longlong, p]
+    lib.prod_force_virial.restype = i
     lib.dp_fused_error_string.argtypes = [i]
     lib.dp_fused_error_string.restype = ctypes.c_char_p
 
@@ -81,7 +87,8 @@ def load() -> KernelLibrary:
 @functools.lru_cache(maxsize=None)
 def _load() -> KernelLibrary:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(src.read_bytes() for src in SOURCES)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libdp_fused_{digest}.so"
     seconds, log = 0.0, ""
@@ -91,13 +98,15 @@ def _load() -> KernelLibrary:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
+                               *map(str, SOURCES)], capture_output=True,
+                              text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed with code {proc.returncode} "
-                               f"building {SOURCE}:\n{log}")
+                               f"building {', '.join(map(str, SOURCES))}:"
+                               f"\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _bind(lib)

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import DPConfig
-from repro_torch.kernels.dp_fused import ops as dp_fused_ops
+from repro_torch.kernels.dp_fused import force as force_ops
 from repro_torch.md import api, comm as comm_mod, integrator, neighbors, stepper
 from repro_torch.md import slab_cells
 from repro_torch.md.topology import Topology
@@ -471,9 +471,9 @@ def _pair_forces(energy_of_rij, pos_all, nlist, start: int, boxm):
     """Energy, forces on every row of ``pos_all`` and virial of the centers
     ``pos_all[start:start + len(nlist)]``.
 
-    Autodiff with respect to r_ij, then the pair forces scattered to atoms
-    with ``index_add_`` (padded slots add their zero into row 0, as the
-    single-process path does). The graph lives only inside this call.
+    Autodiff with respect to r_ij, then the pair forces reduced to atoms by
+    ``kernels.dp_fused.force.prod_force_virial`` with the centres at row
+    ``start``, as the single-process path does. The graph lives only inside this call.
     """
     nmask = nlist >= 0
     j = torch.clamp(nlist, min=0)
@@ -485,11 +485,9 @@ def _pair_forces(energy_of_rij, pos_all, nlist, start: int, boxm):
         rij = rij.requires_grad_(True)
         e = energy_of_rij(rij, nmask)
         (de,) = torch.autograd.grad(e, rij)
-    de = de * nmask[..., None].to(de.dtype)
-    f = torch.zeros_like(pos_all).index_add_(0, j.reshape(-1),
-                                             -de.reshape(-1, 3))
-    f[start:start + nlist.shape[0]] += de.sum(dim=1)
-    virial = -torch.einsum("ijk,ijl->kl", rij.detach(), de)
+    f, virial = force_ops.prod_force_virial(
+        de.contiguous(), rij.detach(), nlist.contiguous(), pos_all.shape[0],
+        start)
     return e.detach(), f, virial
 
 
@@ -1313,7 +1311,7 @@ class StaticSegment:
         if self.graph is None:
             return self._segment(self.state, self.box, self.seg_len)
         self.graph.replay()
-        dp_fused_ops.count_replay(*self.launches)
+        stepper.count_replay(self.launches)
         return {k: v.clone() for k, v in self.thermo.items()}
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.types import DPConfig
+from repro_torch.kernels.dp_fused import force as force_ops
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 from repro_torch.md import api, integrator, neighbors
 
@@ -366,11 +367,26 @@ def _same_inputs(a, b) -> bool:
         for x, y in zip(a, b))
 
 
+# the side stream of every capture's warm-up, one a device: PyTorch keeps
+# cuBLAS workspaces for each stream a product ran on, for the life of the
+# process (32 MiB each on the H100), so a new stream a capture held 64 MiB
+# more each call of the outer engine
+_warm_streams: Dict[int, torch.cuda.Stream] = {}
+
+
+def _warm_stream() -> torch.cuda.Stream:
+    dev = torch.cuda.current_device()
+    if dev not in _warm_streams:
+        _warm_streams[dev] = torch.cuda.Stream(dev)
+    return _warm_streams[dev]
+
+
 def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
                   gens: List[torch.Generator], pool=None,
                   error_mode: str = "global"):
     """Record ``fn()`` as a CUDA graph; returns ``(graph, fn's output,
-    (fwd, bwd) dp_fused launches the graph recorded)``.
+    the launches the graph recorded)``: dp_fused forward, backward and the
+    force reduction, as :func:`count_replay` takes them.
 
     ``warm()`` runs first on a side stream, as capture requires (its kernels
     really run and count as launches), and ``gens`` are set back to their
@@ -380,7 +396,7 @@ def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
     ``torch.cuda.graph``'s ``capture_error_mode``.
     """
     states = [g.get_state() for g in gens]
-    side = torch.cuda.Stream()
+    side = _warm_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         warm()
@@ -393,10 +409,20 @@ def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
         if gen.device.type == "cuda":
             graph.register_generator_state(gen)
     f0, b0 = dp_fused_ops.fwd_captured, dp_fused_ops.bwd_captured
+    r0 = force_ops.force_captured
     with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
         out = fn()
     return graph, out, (dp_fused_ops.fwd_captured - f0,
-                        dp_fused_ops.bwd_captured - b0)
+                        dp_fused_ops.bwd_captured - b0,
+                        force_ops.force_captured - r0)
+
+
+def count_replay(launches: Tuple[int, int, int]) -> None:
+    """One replay of a graph ran the ``launches`` that
+    :func:`capture_graph` counted while recording it."""
+    fwd, bwd, reduction = launches
+    dp_fused_ops.count_replay(fwd, bwd)
+    force_ops.count_replay(reduction)
 
 
 class _CapturedSegment:
@@ -438,7 +464,7 @@ class _CapturedSegment:
 
     def replay(self) -> Dict[str, torch.Tensor]:
         self.graph.replay()
-        dp_fused_ops.count_replay(*self.launches)
+        count_replay(self.launches)
         return {k: v.clone() for k, v in self.thermo.items()}
 
 

@@ -193,6 +193,176 @@ def test_water_sections_through_the_wrapper(dev, sel):
             1.0, float(r.abs().max())))
 
 
+# ------------------------------------- the force-and-virial reduction
+
+F32_UNIT = 2.0 ** -24     # float32's unit roundoff
+
+
+def _force_inputs(seed, a, sections, live_share, dev, rows=None, offset=0,
+                  hot=0.0):
+    """de, rij (A, S, 3) and nlist (A, S) int64, each type section's live
+    slots packed at its front as ``neighbors.pack_type_sections`` packs
+    them, about ``live_share`` of a section live; unless that is 0, the
+    first centre has no live slot and the last a full row; a share ``hot``
+    of the live slots points
+    at row ``rows - 1``, which many centres then share. Padded slots' de
+    and rij hold NaN, which the kernel must never load."""
+    rng = np.random.default_rng(seed)
+    rows = rows or a
+    nlist = np.full((a, sum(sections)), -1, np.int64)
+    lo = 0
+    for width in sections:
+        cnt = rng.binomial(width, live_share, a)
+        if live_share > 0:
+            cnt[0], cnt[-1] = 0, width      # a single centre: a full row
+        live = np.arange(width)[None, :] < cnt[:, None]
+        j = rng.integers(0, rows, (a, width))
+        j = np.where(rng.random((a, width)) < hot, rows - 1, j)
+        nlist[:, lo:lo + width] = np.where(live, j, -1)
+        lo += width
+    pad = (nlist < 0)[..., None]
+    de = rng.normal(size=(*nlist.shape, 3)).astype(np.float32)
+    rij = rng.uniform(-8.0, 8.0, (*nlist.shape, 3)).astype(np.float32)
+    de, rij = (torch.from_numpy(np.where(pad, np.float32(np.nan), x)).to(dev)
+               for x in (de, rij))
+    return de, rij, torch.from_numpy(nlist).to(dev), rows, offset
+
+
+def _unpoisoned(de, rij, nlist):
+    """de and rij with zeros in the padded slots, as autograd gives them."""
+    live = (nlist >= 0)[..., None]
+    return torch.where(live, de, 0.0), torch.where(live, rij, 0.0)
+
+
+def _assert_force_reduction_close(f, w, de, rij, nlist, rows, offset, dev):
+    """The kernel's float32 f and W against the plain version in float64.
+
+    Tolerance: float32 reassociation. A float32 sum of the same terms in
+    any order whose longest chain of roundings is D lies within
+    D x 2^-24 x sum|terms| of the exact sum. Row r of f sums the -de of the
+    n_r slots that point at r, by atomics in any order (n_r + 1 roundings
+    with the centre's own term), and that term, summed over the row's
+    ceil(S/32) slots a lane and 5 shuffles: D_r = n_r + ceil(S/32) + 6.
+    W sums a lane's fused products over its centres' slots (at most
+    ceil(S/32) x ceil(A / (8 x SMs)) with at least one resident block an
+    SM), 5 shuffles, the block's 8 warps, at most ceil(4096/32) partials a
+    lane and 5 shuffles."""
+    from repro_torch.kernels.dp_fused import force
+
+    a, s = nlist.shape
+    de64, rij64 = de.double(), rij.double()
+    f_want, w_want = force.prod_force_virial_ref(de64, rij64, nlist, rows,
+                                                 offset)
+    live = (nlist >= 0)[..., None]
+    f_mass = torch.zeros((rows, 3), dtype=torch.float64, device=dev)
+    f_mass.index_add_(0, nlist.clamp(min=0).reshape(-1),
+                      (de64.abs() * live).reshape(-1, 3))
+    f_mass[offset:offset + a] += (de64.abs() * live).sum(dim=1)
+    n_r = torch.bincount(nlist[nlist >= 0], minlength=rows)
+    depth = (n_r + (s + 31) // 32 + 6).double()[:, None]
+    f_tol = depth * F32_UNIT * f_mass + 1e-30
+    assert bool(((f.double() - f_want).abs() <= f_tol).all()), float(
+        ((f.double() - f_want).abs() / f_tol).max())
+    w_mass = torch.einsum("ijk,ijl->kl", (rij64 * live).abs(), de64.abs())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w_depth = ((s + 31) // 32) * max(1, -(-a // (8 * sms))) + 5 + 8 \
+        + 4096 // 32 + 5
+    w_tol = w_depth * F32_UNIT * w_mass + 1e-30
+    assert bool(((w.double() - w_want).abs() <= w_tol).all()), float(
+        ((w.double() - w_want).abs() / w_tol).max())
+
+
+# cu.weak's one escalated 1320-slot section ~28% live, water's (128, 248)
+# sections, cu.strong's 864 x 512; then a row offset into a larger array
+# (``md/domain._pair_forces``), one row many centres share, a single
+# centre, and slots that are all padding
+_FORCE_CASES = {
+    "cu.weak": dict(a=6000, sections=(1320,), live_share=0.28),
+    "water": dict(a=6000, sections=(128, 248), live_share=0.59),
+    "cu.strong": dict(a=864, sections=(512,), live_share=0.72),
+    "offset": dict(a=500, sections=(96,), live_share=0.5, rows=1700,
+                   offset=900),
+    "shared_row": dict(a=2000, sections=(64, 64), live_share=0.6, hot=0.3),
+    "one_centre": dict(a=1, sections=(37,), live_share=0.5),
+    "all_padding": dict(a=64, sections=(40,), live_share=0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FORCE_CASES))
+def test_force_reduction_kernel_matches_plain_version(dev, case):
+    from repro_torch.kernels.dp_fused import force
+
+    kw = _FORCE_CASES[case]
+    de, rij, nlist, rows, offset = _force_inputs(
+        len(case), kw["a"], kw["sections"], kw["live_share"], dev,
+        kw.get("rows"), kw.get("offset", 0), kw.get("hot", 0.0))
+    n0 = force.force_launches
+    f, w = force.prod_force_virial(de, rij, nlist, rows, offset)
+    torch.cuda.synchronize()
+    assert force.force_launches - n0 == 1
+    assert f.shape == (rows, 3) and w.shape == (3, 3)
+    assert bool(torch.isfinite(f).all()) and bool(torch.isfinite(w).all())
+    _assert_force_reduction_close(f, w, *_unpoisoned(de, rij, nlist), nlist,
+                                  rows, offset, dev)
+    if case == "all_padding":
+        assert not f.any() and not w.any()
+
+
+@pytest.mark.cuda
+def test_force_reduction_counts_eager_captured_and_replayed_launches(dev):
+    """An eager call launches and counts once; a call under CUDA-graph
+    capture counts as captured, not launched; each replay adds what the
+    graph recorded. Replays give the eager virial bit for bit (no atomics)
+    and its forces within float32 reassociation (atomics)."""
+    from repro_torch.kernels.dp_fused import force
+
+    de, rij, nlist, rows, offset = _force_inputs(11, 3000, (128, 248), 0.59,
+                                                 dev)
+    n0 = force.force_launches
+    f, w = force.prod_force_virial(de, rij, nlist, rows)
+    torch.cuda.synchronize()
+    assert force.force_launches - n0 == 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up, as capture requires
+        force.prod_force_virial(de, rij, nlist, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n1, c1 = force.force_launches, force.force_captured
+    with torch.cuda.graph(graph):
+        g_f, g_w = force.prod_force_virial(de, rij, nlist, rows)
+    assert force.force_captured - c1 == 1
+    assert force.force_launches == n1
+    for _ in range(2):
+        graph.replay()
+        force.count_replay(1)
+        torch.cuda.synchronize()
+        assert torch.equal(g_w, w)
+        _assert_force_reduction_close(g_f, g_w, *_unpoisoned(de, rij, nlist),
+                                      nlist, rows, offset, dev)
+    assert force.force_launches - n1 == 2
+
+
+@pytest.mark.cuda
+def test_force_reduction_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.dp_fused import force
+
+    de, rij, nlist, rows, _ = _force_inputs(5, 16, (24,), 0.5, dev)
+    strided = torch.empty((24, 16, 3), device=dev).transpose(0, 1)
+    n0 = force.force_launches
+    for bad, err in [((de.double(), rij, nlist), TypeError),
+                     ((de, rij, nlist.int()), TypeError),
+                     ((de, rij.cpu(), nlist), ValueError),
+                     ((de[:, :-1], rij, nlist), ValueError),
+                     ((strided, rij, nlist), ValueError)]:
+        with pytest.raises(err):
+            force.prod_force_virial(*bad, rows)
+    with pytest.raises(ValueError):
+        force.prod_force_virial(de, rij, nlist, rows, offset=1)
+    assert force.force_launches == n0
+
+
 # --------------------------------------------- the outer engine's graphs
 
 def _copper_engine(dev, ensemble=None):
@@ -288,21 +458,47 @@ def test_langevin_noise_is_fresh_per_replay_and_restored_by_snapshot(dev):
 @pytest.mark.cuda
 def test_replay_launch_counts_match_the_profiler(dev):
     """The counters add what a graph recorded at capture once per replay;
-    the profiler's count of the kernels over two replays agrees."""
+    the profiler's count of the kernels over two replays agrees: the
+    dp_fused pair and the force reduction, once a step each."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.dp_fused import force
 
     eng, carry, aux = _copper_engine(dev)
     eng.run(carry, 1, 10, *aux)                        # capture
-    fw0, bw0 = ops.fwd_launches, ops.bwd_launches
+    fw0, bw0, r0 = ops.fwd_launches, ops.bwd_launches, force.force_launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(carry, 2, 10, *aux)
         torch.cuda.synchronize()
-    counted = (ops.fwd_launches - fw0, ops.bwd_launches - bw0)
-    assert counted == (20, 20)
+    counted = (ops.fwd_launches - fw0, ops.bwd_launches - bw0,
+               force.force_launches - r0)
+    assert counted == (20, 20, 20)
     seen = [sum(e.count for e in prof.key_averages() if name in e.key)
-            for name in ("fwd_kernel", "bwd_kernel")]
+            for name in ("fwd_kernel", "bwd_kernel",
+                         "prod_force_virial_kernel")]
     assert tuple(seen) == counted, seen
+    assert not [e.key for e in prof.key_averages() if "indexFunc" in e.key]
+
+
+@pytest.mark.cuda
+def test_each_new_capture_holds_no_more_memory(dev):
+    """Every capture warms up on one side stream a device: PyTorch keeps
+    cuBLAS workspaces for each stream a product ran on, so a new stream a
+    capture held 64 MiB more each call. Engines that record and are
+    dropped leave the card's allocation where the first left it."""
+    import gc
+
+    held = []
+    for _ in range(3):
+        eng, carry, aux = _copper_engine(dev)
+        eng.run(carry, 1, 4, *aux)
+        assert eng.captures == 1
+        del eng, carry, aux
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(dev))
+    assert held[1] == held[2], held
 
 
 @pytest.mark.cuda

@@ -536,15 +536,16 @@ def test_local_comm_collectives_under_thread_switching():
 
 
 def test_launch_counters_survive_concurrent_ranks():
-    """The kernels' launch counters are read-modify-writes shared by every
-    rank thread: more threads than cores, a tiny switch interval, and not
-    one update lost."""
-    from repro_torch.kernels.dp_fused import ops
+    """The kernels' launch counters (the dp_fused pair's and the force
+    reduction's, as a replay adds them) are read-modify-writes shared by
+    every rank thread: more threads than cores, a tiny switch interval, and
+    not one update lost."""
+    from repro_torch.kernels.dp_fused import force, ops
 
     n_threads, per = 2 * (os.cpu_count() or 4) + 1, 500
-    before = (ops.fwd_launches, ops.bwd_launches)
-    threads = [threading.Thread(target=lambda: [ops.count_replay(1, 2)
-                                                for _ in range(per)])
+    before = (ops.fwd_launches, ops.bwd_launches, force.force_launches)
+    threads = [threading.Thread(target=lambda: [
+                   stepper.count_replay((1, 2, 3)) for _ in range(per)])
                for _ in range(n_threads)]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -556,9 +557,10 @@ def test_launch_counters_survive_concurrent_ranks():
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    got = (ops.fwd_launches - before[0], ops.bwd_launches - before[1])
-    ops.fwd_launches, ops.bwd_launches = before
-    assert got == (n_threads * per, 2 * n_threads * per)
+    got = (ops.fwd_launches - before[0], ops.bwd_launches - before[1],
+           force.force_launches - before[2])
+    ops.fwd_launches, ops.bwd_launches, force.force_launches = before
+    assert got == (n_threads * per, 2 * n_threads * per, 3 * n_threads * per)
 
 
 def test_md_run_cli_on_the_cpu(capsys, monkeypatch):

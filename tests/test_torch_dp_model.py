@@ -186,3 +186,115 @@ def test_env_stats_match_reference(tiny_water_cfg):
     d_t = descriptor.compute_env_stats(env_t, torch.from_numpy(
         np.array(nmask)), torch.from_numpy(typ).long(), 2)
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5)
+
+
+# ------------------------------------------ the force-and-virial reduction
+
+def _reduction_inputs(seed, a, sections, rows, packed=True):
+    """de, rij (A, S, 3) float32 and nlist (A, S) int64, -1 for padding:
+    about half of each type section live (packed at its front, or not),
+    the first centre with no live slot, the last with a full row. Padded
+    slots hold finite garbage, which the plain path's mask must drop."""
+    rng = np.random.default_rng(seed)
+    nlist = np.full((a, sum(sections)), -1, np.int64)
+    lo = 0
+    for width in sections:
+        live = rng.random((a, width)) < 0.5
+        if packed:
+            live = np.arange(width)[None, :] < live.sum(1)[:, None]
+        live[0], live[-1] = False, True
+        nlist[:, lo:lo + width] = np.where(
+            live, rng.integers(0, rows, (a, width)), -1)
+        lo += width
+    de = rng.normal(size=(*nlist.shape, 3)).astype(np.float32)
+    rij = rng.uniform(-4.0, 4.0, (*nlist.shape, 3)).astype(np.float32)
+    return de, rij, nlist
+
+
+def _reduction_loop(de, rij, nlist, rows, offset):
+    """Forces and virial by a float64 double loop over centres and slots:
+    -de on the neighbour, +de on the centre, W -= r (x) de; padding
+    skipped."""
+    f = np.zeros((rows, 3))
+    w = np.zeros((3, 3))
+    for a in range(nlist.shape[0]):
+        for n in range(nlist.shape[1]):
+            j = nlist[a, n]
+            if j < 0:
+                continue
+            d = de[a, n].astype(np.float64)
+            f[j] -= d
+            f[offset + a] += d
+            w -= np.outer(rij[a, n].astype(np.float64), d)
+    return f, w
+
+
+# (A, sections, rows, offset, packed): the single-process layout, water's
+# two sections, ``md/domain._pair_forces``'s centres at a row offset of a
+# larger array, and live slots not packed (the plain path assumes nothing)
+_REDUCTION_CASES = {
+    "single_process": (9, (12,), 9, 0, True),
+    "two_sections": (8, (6, 10), 8, 0, True),
+    "row_offset": (6, (7,), 15, 5, True),
+    "unpacked": (7, (5, 6), 11, 2, False),
+}
+
+
+@pytest.mark.parametrize("case", list(_REDUCTION_CASES))
+def test_force_reduction_plain_path_matches_a_double_loop(case):
+    from repro_torch.kernels.dp_fused import force
+
+    a, sections, rows, offset, packed = _REDUCTION_CASES[case]
+    de, rij, nlist = _reduction_inputs(len(case), a, sections, rows, packed)
+    f, w = force.prod_force_virial(torch.from_numpy(de),
+                                   torch.from_numpy(rij),
+                                   torch.from_numpy(nlist), rows, offset)
+    f_want, w_want = _reduction_loop(de, rij, nlist, rows, offset)
+    # float32 sums of a few dozen terms of order 1 (forces) and 10 (virial)
+    np.testing.assert_allclose(f.numpy(), f_want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(w.numpy(), w_want, rtol=1e-5, atol=1e-4)
+
+
+def _index_add_forces(energy_of_rij, pos, nlist, box):
+    """``energy_forces_from_rij`` as it was written before the reduction
+    had a wrapper: mask, ``index_add_``, row sum, einsum."""
+    rij, nmask = dp_model.gather_rij(pos, nlist, box)
+    rij = rij.requires_grad_(True)
+    e = energy_of_rij(rij, nmask)
+    (de_drij,) = torch.autograd.grad(e, rij)
+    de = de_drij * nmask[..., None].to(de_drij.dtype)
+    j = torch.clamp(nlist, min=0).reshape(-1)
+    f = torch.zeros_like(pos).index_add_(0, j, -de.reshape(-1, 3))
+    f = f + de.sum(dim=1)
+    virial = -torch.einsum("ijk,ijl->kl", rij.detach(), de)
+    return e.detach(), f, virial
+
+
+@pytest.mark.parametrize("system", ["copper", "water", "lj"])
+def test_energy_forces_on_the_cpu_equal_the_index_add_formula(
+        system, tiny_cfg, tiny_water_cfg):
+    """On the CPU the wrapper takes the plain path: the same energy, forces
+    and virial as the ``index_add_`` formula, bit for bit."""
+    from repro_torch.md import api
+
+    cfg = tiny_water_cfg if system == "water" else tiny_cfg
+    pos, typ, nlist, box = (_water(cfg) if system == "water"
+                            else _copper(cfg, seed=5))
+    pos, box = torch.from_numpy(pos), torch.from_numpy(box)
+    nlist, typ = torch.from_numpy(nlist).long(), torch.from_numpy(typ).long()
+    if system == "lj":
+        pot = api.LJPotential(rcut_lj=cfg.rcut)
+
+        def energy(rij, nmask):
+            return torch.sum(pot.atomic_energy({}, rij, nmask, typ))
+    else:
+        _, p_t = _both(cfg, 0, "cheb")
+        amask = torch.ones(pos.shape[0])
+
+        def energy(rij, nmask):
+            return dp_model.dp_energy(p_t, cfg, rij, nmask, typ, amask,
+                                      "cheb_pallas")
+    got = dp_model.energy_forces_from_rij(energy, pos, nlist, box)
+    want = _index_add_forces(energy, pos, nlist, box)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
