@@ -1,9 +1,10 @@
 """The comparison that decides ``correct``.
 
-After the window, with the port's state freed, the plain reference
-(``mdbench/reference``) takes one call of the window drawn from the seed
-and works it out again from what the benchmark handed to the port (the
-system, the raw weights, the call's seed): its own Chebyshev table, its own
+After the window, with the port's state freed, the plain reference of the
+configuration's model family (``reference/<family>.py``) takes one call of
+the window drawn from the seed and works it out again from what the
+benchmark handed to the port (the system, the raw weights, the call's
+seed): its own tables (the se_e2_a family's Chebyshev table), its own
 neighbour table, its own starting velocities, and velocity Verlet for the
 traffic's ``follow_steps`` (the whole call where that is the call's length).
 The numbers compared, each against the cell's limit
@@ -32,8 +33,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mdbench.reference import dp as ref_dp
 from mdbench.reference import md as ref_md
+from mdbench.reference.shared import neighbor_table, pair_counts
 
 ORDER = ("pe_rows", "ke_rows", "vel_end", "pos_end", "pe_end")
 
@@ -45,6 +46,9 @@ class Outcome:
     failed: int
     live_pairs: List[int]            # pairs within rcut by neighbour type
     rebuilds: int
+    # pairs within rcut + skin, the slots a list built there fills (traced
+    # runs only: the force-and-virial roofline reads them)
+    filled_pairs: Optional[int] = None
 
     @classmethod
     def held(cls, numbers: Dict[str, float], cell_limits: Dict[str, float],
@@ -130,22 +134,25 @@ def compare(pe: np.ndarray, ke: np.ndarray, pos: Optional[np.ndarray],
     return out
 
 
-def end_energy_gap(model: ref_dp.DPReference, pe_port: float,
+def end_energy_gap(model, pe_port: float,
                    pos: np.ndarray, typ: torch.Tensor, box: torch.Tensor,
                    dev: torch.device):
-    """|PE_port - PE_ref| / atoms at the port's positions ``pos``, and the
-    pairs within rcut there by neighbour type."""
+    """|PE_port - PE_ref| / atoms at the port's positions ``pos`` under the
+    family's reference ``model``, and the pairs within rcut there by
+    neighbour type."""
     x = torch.as_tensor(pos, dtype=torch.float32, device=dev)
     e, nbr = ref_md.energy_at(model, x, typ, box)
-    live = ref_dp.pair_counts(x, typ, box, nbr, model.rcut, model.ntypes)
+    live = pair_counts(x, typ, box, nbr, model.rcut, model.ntypes)
     return abs(float(pe_port) - e) / len(pos), live
 
 
 def reference_inputs(run, precision: str = "float32"):
-    """(model, typ, box, mass) of the reference on the run's device."""
+    """(model, typ, box, mass) of the reference on the run's device: the
+    model is the configuration's family's ``Reference`` in ``precision``."""
     dev = run.device
     cfg = run.cell.config
-    model = ref_dp.DPReference(cfg, run.weights, dev, precision=precision)
+    model = run.cell.family.Reference(cfg, run.weights, dev,
+                                      precision=precision)
     typ = torch.as_tensor(run.typ, dtype=torch.int64, device=dev)
     box = torch.as_tensor(run.box, dtype=torch.float32, device=dev)
     mass = torch.as_tensor(ref_md.masses(cfg["type_map"], run.typ),
@@ -186,6 +193,10 @@ def run_check(run) -> Outcome:
             live = live_i
     numbers["pe_end"] = max(gaps.values())
     out = Outcome.held(numbers, run.cell.limits, live, traj.rebuilds)
+    if run.trace:
+        x = torch.as_tensor(rec.pos, dtype=torch.float32, device=run.device)
+        rc = model.rcut + float(run.cell.traffic["skin"])
+        out.filled_pairs = int((neighbor_table(x, box, rc) >= 0).sum())
     limits = out.limits
 
     def bad(name, value):

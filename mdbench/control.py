@@ -31,7 +31,6 @@ import torch  # noqa: E402
 
 from mdbench import check, inputs, manifest  # noqa: E402
 from mdbench.record import Run  # noqa: E402
-from mdbench.reference import dp as ref_dp  # noqa: E402
 
 
 def control_outcome(cell: manifest.Cell, seed: int, device: str):
@@ -40,14 +39,16 @@ def control_outcome(cell: manifest.Cell, seed: int, device: str):
     limits, whose ``correct`` has to come out false."""
     dev = torch.device(device)
     run = Run(cell=cell, seed=seed, seconds=0.0, trace=False, device=dev)
-    run.pos0, run.typ, run.box = inputs.system(cell.traffic["system"])
+    run.pos0, run.typ, run.box = inputs.system(cell.traffic["system"],
+                                               cell.base)
     run.weights = inputs.weights(
         cell.config, int(cell.config["model_seed"]), dev,
-        inputs.env_scale(cell.config, run.pos0, run.typ, run.box, dev))
+        inputs.env_scale(cell.config, run.pos0, run.typ, run.box, dev),
+        cell.base)
     call = inputs.call_seed(seed, 0)
     model, typ, box, mass = check.reference_inputs(run)
     want = check.follow(run, model, typ, box, mass, call)
-    low = ref_dp.DPReference(cell.config, run.weights, dev, precision="tf32")
+    low = check.reference_inputs(run, precision="tf32")[0]
     got = check.follow(run, low, typ, box, mass, call)
     whole = len(want.pe) == run.steps
     pos = got.pos.cpu().numpy()

@@ -1,5 +1,7 @@
-"""The benchmark's own yardsticks: the card's peaks, the operations and bytes
-of the two fused kernels, and the operations of one DP force evaluation.
+"""The benchmark's own yardsticks: the card's peaks, and the operations and
+bytes of the two fused kernels and of the force-and-virial reduction. The
+operations of one whole force evaluation depend on the model family and
+live with it (``reference/<family>.py``: ``force_eval_flops``).
 
 Frozen here so that a change to the port cannot move them. Peaks: NVIDIA's
 H100 SXM data sheet at the 700 W limit, dense, float32 outside the tensor
@@ -36,15 +38,41 @@ def kernel_cost(live: float, a: int, n: int, k: int, m: int
     }
 
 
+def bound_s(nbytes: float, ops: float) -> Tuple[float, str]:
+    """Least seconds of a kernel's work: the larger of its bytes over HBM
+    bandwidth and its operations over the float32 peak, and which."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
 def kernel_bound_s(live: float, a: int, n: int, k: int, m: int
                    ) -> Dict[str, Tuple[float, str]]:
-    """Least seconds of each kernel's work: the larger of its bytes over
-    HBM bandwidth and its operations over the float32 peak, and which."""
-    out = {}
-    for name, (b, f) in kernel_cost(live, a, n, k, m).items():
-        t_b, t_f = b / HBM_BYTES_PER_S, f / PEAK_FP32_FLOPS
-        out[name] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
-    return out
+    """:func:`bound_s` of each fused kernel's work."""
+    return {name: bound_s(b, f)
+            for name, (b, f) in kernel_cost(live, a, n, k, m).items()}
+
+
+def force_virial_cost(live: float, filled: float, a: int, sections: int,
+                      rows: int) -> Tuple[float, float]:
+    """(bytes, FP32 operations) of the force-and-virial reduction
+    (``prod_force_virial`` and its finishing pass) on ``a`` centres with
+    ``sections`` neighbour sections, ``filled`` filled slots and ``live``
+    live slots in all, and ``rows`` rows of forces.
+
+    Bytes, each read or written once, as ``kernel_cost`` counts live slots
+    only: the nlist of the filled slots and one -1 a section that ends
+    them (8 B each, int64; a lane may stop at a section's first -1, so
+    padding past it is no work), dE/dr_ij and r_ij of the live slots
+    (24 B a live slot), the forces written (12 B a row). Operations: per
+    live slot its action and reaction (6) and its nine virial products
+    (18)."""
+    return (filled + a * sections) * 8 + live * 24 + rows * 12, live * 24
+
+
+def force_virial_bound_s(live: float, filled: float, a: int, sections: int,
+                         rows: int) -> Tuple[float, str]:
+    """:func:`bound_s` of the reduction's work."""
+    return bound_s(*force_virial_cost(live, filled, a, sections, rows))
 
 
 def mlp_flops(widths: Sequence[int], d_in: int) -> float:
@@ -55,21 +83,3 @@ def mlp_flops(widths: Sequence[int], d_in: int) -> float:
         total += 2.0 * prev * int(w)
         prev = int(w)
     return total
-
-
-def force_eval_flops(cfg: Dict, atoms: int, live_pairs: float) -> float:
-    """FP32 operations of one DP energy-and-forces evaluation of ``atoms``
-    atoms with ``live_pairs`` pairs within rcut, forward and backward, by the
-    least-work algorithm: per live pair the environment row and switch
-    (30 forward, 60 backward) and the fused kernels' per-slot work; per atom
-    the kernels' 8 K M, the descriptor (4 x M< x M multiply-adds) and the
-    fitting net (2048 -> 240 -> 240 -> 240 -> 1). A backward layer of the
-    force (input gradients only) costs what its forward does."""
-    k = int(cfg["cheb_order"])
-    m = int(cfg["embed_widths"][-1])
-    axis = int(cfg["axis_neuron"])
-    fit = mlp_flops(list(cfg["fit_widths"]) + [1], axis * m)
-    per_atom_fwd = 8.0 * k * m + 2.0 * 4 * axis * m + fit
-    per_atom_bwd = 8.0 * k * m + 2.0 * 2.0 * 4 * axis * m + fit
-    per_pair = 30.0 + 11.0 * k + 60.0 + 24.0 * k
-    return atoms * (per_atom_fwd + per_atom_bwd) + live_pairs * per_pair

@@ -30,7 +30,7 @@ class Entry:
         self._domain = domain
         self.run = run
         tr = run.cell.traffic
-        cfg = DPConfig(**manifest.dp_config_fields(run.cell.config))
+        cfg = manifest.config_for(DPConfig, run.cell.config)
         self.cfg = cfg
         self.masses = tuple(lattice.MASS[t] for t in cfg.type_map)
         self.topo = Topology.parse(tr["topology"])

@@ -25,7 +25,7 @@ class Entry:
 
         self._api = api
         self.run = run
-        cfg = DPConfig(**manifest.dp_config_fields(run.cell.config))
+        cfg = manifest.config_for(DPConfig, run.cell.config)
         self.cfg = cfg
         self.potential = api.make_potential("dp", cfg, impl=cfg.impl)
         self.params = self.potential.prepare_params(run.weights)

@@ -1,7 +1,10 @@
-"""Finds everything of a cell by the names in ``BENCHMARK.json``.
+"""Finds everything of a cell by the names in ``BENCHMARK.json`` and in its
+files, all in the directory the cell was read from (``Cell.base``).
 
-  configs/<config>.json      a model configuration (the port's DPConfig
-                             fields, its source and what was assumed)
+  configs/<config>.json      a model configuration: its model family
+                             (``"family"``, se_e2_a where absent), the
+                             fields of the port's model config, its source
+                             and what was assumed
   traffic/<traffic>.json     a run protocol: the entry, the system, the
                              ensemble and engine, steps a call, the check's
                              length and the traced stretch
@@ -10,9 +13,17 @@
                              its value, or None where it finds nothing
   entries/<entry>.py         the code that drives one kind of entry of the
                              port (``Entry(run)``)
+  reference/<family>.py      a model family: ``weights(cfg, seed, device,
+                             dstd)``, the plain ``Reference(cfg, weights,
+                             device, precision)`` and ``force_eval_flops(cfg,
+                             atoms, live_pairs)``
+  systems/<kind>.py          a system's builder (the traffic's
+                             ``system.kind``): ``build(spec) -> (pos, typ,
+                             box)``
 
-A new cell, configuration or metric is new files here and new entries in
-``BENCHMARK.json``; no file that is already here changes.
+A new cell, configuration, model family, system or metric is new files here
+and new entries in ``BENCHMARK.json``; no file that is already here changes.
+(``reference/md.py`` and ``reference/shared.py`` are no families.)
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[Metric]
     per_layer: List[Metric]
+    family: Any                     # its model family: reference/<family>.py
+    base: Path = HERE               # the directory its files were read from
 
 
 def _json(path: Path) -> Dict:
@@ -103,22 +116,38 @@ def load(cell: str, benchmark: Optional[Path] = None,
         return out
 
     limits_path = base / "limits" / f"{cell}.json"
+    config = _json(base / "configs" / f"{w['config']}.json")
     return Cell(name=cell, chips=int(w["chips"]), config_name=w["config"],
-                config=_json(base / "configs" / f"{w['config']}.json"),
+                config=config,
                 traffic_name=w["traffic"],
                 traffic=_json(base / "traffic" / f"{w['traffic']}.json"),
                 limits=_json(limits_path)["limits"]
                 if limits_path.exists() else {},
                 end_to_end=metrics("end_to_end"),
-                per_layer=metrics("per_layer"))
+                per_layer=metrics("per_layer"),
+                family=family(config, base), base=base)
 
 
-def dp_config_fields(cfg: Dict) -> Dict:
-    """The configuration file's fields that the port's ``DPConfig`` takes."""
-    keys = ("ntypes", "rcut", "rcut_smth", "sel", "type_map", "embed_widths",
-            "axis_neuron", "type_one_side", "fit_widths", "impl",
-            "table_lower", "table_upper", "cheb_order", "dtype")
-    out = {k: cfg[k] for k in keys if k in cfg}
-    for k in ("sel", "type_map", "embed_widths", "fit_widths"):
-        out[k] = tuple(out[k])
-    return out
+DEFAULT_FAMILY = "se_e2_a"
+
+
+def family(cfg: Dict, base: Path = HERE):
+    """The module ``reference/<family>.py`` of configuration ``cfg``."""
+    name = cfg.get("family", DEFAULT_FAMILY)
+    return _load_module(base / "reference" / f"{name}.py",
+                        f"mdbench_family_{name}")
+
+
+def system_builder(kind: str, base: Path = HERE):
+    """The module ``systems/<kind>.py``."""
+    return _load_module(base / "systems" / f"{kind}.py",
+                        f"mdbench_system_{kind}")
+
+
+def config_for(cls, cfg: Dict):
+    """``cls`` (a dataclass: the port's model config) built from every key
+    of the configuration file that is one of its fields, lists made
+    tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in cfg.items() if k in names})

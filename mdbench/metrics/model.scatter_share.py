@@ -1,8 +1,11 @@
-"""Share of the profiled stretch's device time spent in the force scatter:
-``index_add_``'s kernels (``indexFuncLargeIndex`` / ``indexFuncSmallIndex``,
-atomics on the card)."""
+"""Share of the profiled stretch's device time spent in the force-and-virial
+reduction: the kernels of ``kernels/dp_fused/csrc/prod_force_virial.cu``
+(``prod_force_virial_kernel``, which scatters each slot's dE/dr_ij onto its
+neighbour and its centre and sums the virial, and
+``prod_force_finish_kernel``, which sums the blocks' virials and writes the
+forces). Nothing where neither ran."""
 
-NAMES = ("indexFuncLargeIndex", "indexFuncSmallIndex")
+NAMES = ("prod_force_virial_kernel", "prod_force_finish_kernel")
 
 
 def read(run):

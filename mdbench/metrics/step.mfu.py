@@ -1,6 +1,7 @@
 """The whole step's share of the card's float32 peak: the benchmark's own
-count of one DP energy-and-forces evaluation (forward and backward, the
-pairs within rcut that the reference counted, ``mdbench/cost.py``) times
+count of one energy-and-forces evaluation (forward and backward, the pairs
+within rcut that the reference counted; the model family's
+``force_eval_flops``, ``mdbench/reference/<family>.py``) times
 the evaluations of the window's calls (steps + 1 a call), over the window's
 wall time, over 67 TFLOP/s a card."""
 
@@ -10,8 +11,8 @@ from mdbench import cost
 def read(run):
     if not run.calls or run.window_s <= 0 or run.check is None:
         return None
-    flops = cost.force_eval_flops(run.cell.config, run.atoms,
-                                  sum(run.check.live_pairs))
+    flops = run.cell.family.force_eval_flops(run.cell.config, run.atoms,
+                                             sum(run.check.live_pairs))
     evals = len(run.calls) * (run.steps + 1)
     cards = run.extra.get("cards", 1)
     return 100.0 * flops * evals / run.window_s / (cost.PEAK_FP32_FLOPS

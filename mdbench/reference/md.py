@@ -15,7 +15,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from mdbench.reference.dp import DPReference, neighbor_table
+from mdbench.reference.shared import neighbor_table
 
 KB_EV = 8.617333262e-5            # Boltzmann constant, eV / K
 FORCE_TO_ACC = 9.64853329045e-3   # (eV / A) / amu in A / fs^2
@@ -51,13 +51,13 @@ class Trajectory:
     rebuilds: int
 
 
-def nve(model: DPReference, pos: torch.Tensor, vel: torch.Tensor,
+def nve(model, pos: torch.Tensor, vel: torch.Tensor,
         typ: torch.Tensor, box: torch.Tensor, mass: torch.Tensor,
         dt_fs: float, steps: int, skin: float) -> Trajectory:
-    """``steps`` velocity-Verlet steps. The neighbour table holds every pair
-    within rcut + skin and is built again as soon as an atom has moved more
-    than skin / 2 since the last build, so no pair within rcut is ever
-    missed."""
+    """``steps`` velocity-Verlet steps of ``model``, a model family's
+    ``Reference``. The neighbour table holds every pair within rcut + skin
+    and is built again as soon as an atom has moved more than skin / 2 since
+    the last build, so no pair within rcut is ever missed."""
     rc = model.rcut + skin
     nbr = neighbor_table(pos, box, rc)
     anchor = pos.clone()
@@ -82,7 +82,7 @@ def nve(model: DPReference, pos: torch.Tensor, vel: torch.Tensor,
     return Trajectory(np.asarray(pe), np.asarray(ke), pos, vel, rebuilds)
 
 
-def energy_at(model: DPReference, pos: torch.Tensor, typ: torch.Tensor,
+def energy_at(model, pos: torch.Tensor, typ: torch.Tensor,
               box: torch.Tensor, skin: float = 0.0) -> Tuple[float, torch.Tensor]:
     """Potential energy at ``pos``, and the neighbour table it used."""
     nbr = neighbor_table(pos, box, model.rcut + skin)

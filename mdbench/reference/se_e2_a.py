@@ -1,6 +1,15 @@
-"""Plain PyTorch Deep Potential (se_e2_a) energies and forces.
+"""The se_e2_a model family: DeePMD-kit's smooth edition of the Deep
+Potential with two-body embeddings of the full radial and angular
+information, ``type_one_side`` (one embedding net per neighbour type).
 
-The reference the benchmark holds the port against. It follows the paper
+  weights           the raw weights from a seed, handed to the port and
+                    to the reference alike
+  Reference         plain PyTorch energies and forces
+  force_eval_flops  the least-work count of one force evaluation
+
+A configuration file without a ``family`` key is of this family.
+
+The reference the benchmark holds the port against follows the paper
 (Guo et al., arXiv:2201.01446, Sec. 2-3) and DeePMD-kit's se_e2_a
 convention, written from the equations, not from the port:
 
@@ -26,22 +35,70 @@ mantissa. Nothing here imports the port.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (float32) rounded to TF32: 10 mantissa bits, to nearest even.
-    The gradient passes straight through."""
-    i = x.detach().contiguous().view(torch.int32)
-    lsb = torch.bitwise_and(torch.bitwise_right_shift(i, 13), 1)
-    i = torch.bitwise_and(i + 0xFFF + lsb, ~0x1FFF)
-    return x + (i.view(torch.float32) - x.detach())
+from mdbench.cost import mlp_flops
+from mdbench.reference.shared import round_tf32
 
 
-class DPReference:
+def _layer(flat: torch.Tensor, at: int, d_in: int, d_out: int
+           ) -> Tuple[Dict[str, torch.Tensor], int]:
+    n_w = d_in * d_out
+    w = flat[at:at + n_w].view(d_in, d_out) / float(d_in + d_out) ** 0.5
+    b = flat[at + n_w:at + n_w + d_out] * 0.1
+    return {"w": w, "b": b}, at + n_w + d_out
+
+
+def _mlp_sizes(widths: Sequence[int], d_in: int) -> List[Tuple[int, int]]:
+    sizes, prev = [], d_in
+    for w in widths:
+        sizes.append((prev, int(w)))
+        prev = int(w)
+    return sizes
+
+
+def weights(cfg: Dict, seed: int, device: torch.device,
+            dstd: Optional[torch.Tensor] = None) -> Dict:
+    """Raw DP weights from ``seed``, drawn on ``device`` in one call: the
+    DeePMD initialisation, W ~ N(0, 1) / sqrt(d_in + d_out) and
+    b ~ 0.1 N(0, 1); one embedding net per neighbour type and one fitting
+    net per centre type; the environment scales ``dstd`` (1 if not given)
+    and the energy biases 0. The dict has the port's parameter layout."""
+    ntypes = int(cfg["ntypes"])
+    embed = _mlp_sizes(cfg["embed_widths"], 1)
+    desc = int(cfg["axis_neuron"]) * int(cfg["embed_widths"][-1])
+    fit = _mlp_sizes(cfg["fit_widths"], desc) + [(int(cfg["fit_widths"][-1]),
+                                                  1)]
+    per_net = sum(a * b + b for a, b in embed)
+    per_fit = sum(a * b + b for a, b in fit)
+    total = ntypes * (per_net + per_fit)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    flat = torch.randn(total, generator=gen, device=device,
+                       dtype=torch.float32)
+    at = 0
+    out: Dict = {"embed": {}, "fit": {}}
+    for t in range(ntypes):
+        net = []
+        for a, b in embed:
+            lyr, at = _layer(flat, at, a, b)
+            net.append(lyr)
+        out["embed"][str(t)] = net
+    for t in range(ntypes):
+        layers = []
+        for a, b in fit:
+            lyr, at = _layer(flat, at, a, b)
+            layers.append(lyr)
+        out["fit"][str(t)] = {"hidden": layers[:-1], "head": layers[-1]}
+    out["dstd"] = (torch.ones((ntypes, 4), dtype=torch.float32, device=device)
+                   if dstd is None else dstd.to(device))
+    out["ebias"] = torch.zeros((ntypes,), dtype=torch.float32, device=device)
+    return out
+
+
+class Reference:
     """Energies and forces of one DP model, from its raw weights.
 
     ``cfg``: the configuration file's fields; ``weights``: the raw weight
@@ -216,55 +273,19 @@ class DPReference:
         return float(total), force
 
 
-def pair_counts(pos: torch.Tensor, typ: torch.Tensor, box: torch.Tensor,
-                nbr: torch.Tensor, rcut: float, ntypes: int) -> List[int]:
-    """Pairs (i, j) with |r_ij| < rcut, by the neighbour's type: the live
-    slots that the work needs."""
-    out = [0] * ntypes
-    for a0 in range(0, pos.shape[0], 8192):
-        idx = nbr[a0:a0 + 8192]
-        valid = idx >= 0
-        j = torch.clamp(idx, min=0)
-        rij = pos[j] - pos[a0:a0 + 8192, None, :]
-        rij = rij - box * torch.round(rij / box)
-        live = valid & (torch.sum(rij * rij, dim=-1) < rcut * rcut)
-        for t in range(ntypes):
-            out[t] += int((live & (typ[j] == t)).sum())
-    return out
-
-
-def neighbor_table(pos: torch.Tensor, box: torch.Tensor, rc: float,
-                   block: int = 1024) -> torch.Tensor:
-    """(N, P) indices of every atom within ``rc`` of each atom (minimum
-    image; the box must be at least 2 rc wide), -1 past each row's count.
-    Brute force over all pairs, a block of rows at a time."""
-    n = pos.shape[0]
-    if bool(torch.any(box < 2.0 * rc)):
-        raise ValueError(f"box {box.tolist()} narrower than 2 x {rc} A")
-    rows: List[torch.Tensor] = []
-    cols: List[torch.Tensor] = []
-    rc2 = rc * rc
-    ar = torch.arange(n, device=pos.device)
-    for a0 in range(0, n, block):
-        a1 = min(n, a0 + block)
-        d2 = torch.zeros((a1 - a0, n), dtype=pos.dtype, device=pos.device)
-        for a in range(3):
-            d = pos[None, :, a] - pos[a0:a1, None, a]
-            d = d - box[a] * torch.round(d / box[a])
-            d2 += d * d
-        hit = d2 < rc2
-        hit[torch.arange(a1 - a0, device=pos.device), ar[a0:a1]] = False
-        r, c = torch.nonzero(hit, as_tuple=True)
-        rows.append(r + a0)
-        cols.append(c)
-    r = torch.cat(rows)
-    c = torch.cat(cols)
-    counts = torch.bincount(r, minlength=n)
-    width = int(counts.max()) if n else 0
-    start = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(r.shape[0], device=pos.device) - start[r]
-    table = torch.full((n, max(width, 1)), -1, dtype=torch.int64,
-                       device=pos.device)
-    table[r, slot] = c
-    return table
-
+def force_eval_flops(cfg: Dict, atoms: int, live_pairs: float) -> float:
+    """FP32 operations of one DP energy-and-forces evaluation of ``atoms``
+    atoms with ``live_pairs`` pairs within rcut, forward and backward, by the
+    least-work algorithm: per live pair the environment row and switch
+    (30 forward, 60 backward) and the fused kernels' per-slot work; per atom
+    the kernels' 8 K M, the descriptor (4 x M< x M multiply-adds) and the
+    fitting net (2048 -> 240 -> 240 -> 240 -> 1). A backward layer of the
+    force (input gradients only) costs what its forward does."""
+    k = int(cfg["cheb_order"])
+    m = int(cfg["embed_widths"][-1])
+    axis = int(cfg["axis_neuron"])
+    fit = mlp_flops(list(cfg["fit_widths"]) + [1], axis * m)
+    per_atom_fwd = 8.0 * k * m + 2.0 * 4 * axis * m + fit
+    per_atom_bwd = 8.0 * k * m + 2.0 * 2.0 * 4 * axis * m + fit
+    per_pair = 30.0 + 11.0 * k + 60.0 + 24.0 * k
+    return atoms * (per_atom_fwd + per_atom_bwd) + live_pairs * per_pair

@@ -14,8 +14,9 @@ end of the call in which they ran out. Each call starts from the cell's
 system with velocities drawn from the seed and the call's index.
 
 After the window: the peak memory is read, the port's state is freed and
-the plain reference (``mdbench/reference``) checks one call drawn from the
-seed (see ``mdbench/check.py``). With ``--trace 0`` the last line of
+the plain reference of the configuration's model family
+(``mdbench/reference/<family>.py``) checks one call drawn from the seed
+(see ``mdbench/check.py``). With ``--trace 0`` the last line of
 standard output carries the cell's end-to-end metrics, with ``--trace 1``
 its per-layer metrics, read from a bounded profiled stretch of the window.
 Each number compared, beside its limit, ends standard error and the line.
@@ -116,13 +117,16 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
 
     # ------------------------------------------------------------ set-up
     stages = [("imports and the card", time.perf_counter())]
-    run.pos0, run.typ, run.box = inputs.system(traffic["system"])
+    run.pos0, run.typ, run.box = inputs.system(traffic["system"], cell.base)
     run.weights = inputs.weights(
         cell.config, int(cell.config["model_seed"]), dev,
-        inputs.env_scale(cell.config, run.pos0, run.typ, run.box, dev))
+        inputs.env_scale(cell.config, run.pos0, run.typ, run.box, dev),
+        cell.base)
     _sync(dev)
+    if lead:
+        log(f"weights digest {inputs.weights_digest(run.weights)}")
     stages.append(("system and weights", time.perf_counter()))
-    run.entry = manifest.entry_class(traffic["entry"])(run)
+    run.entry = manifest.entry_class(traffic["entry"], cell.base)(run)
     _sync(dev)
     stages.append(("entry (kernels, table)", time.perf_counter()))
     every = max(1, run.steps // 10)

@@ -49,10 +49,11 @@ TINY_BRICK_LIMITS = {k: v for k, v in TINY_LIMITS.items() if k != "pos_end"}
 
 @pytest.fixture
 def tiny_base(tmp_path):
-    """A copy of the harness's readers and entries with the tiny cell's
-    files; returns (BENCHMARK.json path, base directory)."""
+    """A copy of the harness's readers, entries, model families and system
+    builders with the tiny cell's files; returns (BENCHMARK.json path, base
+    directory)."""
     base = tmp_path / "mdbench"
-    for d in ("metrics", "entries"):
+    for d in ("metrics", "entries", "reference", "systems"):
         shutil.copytree(MDBENCH / d, base / d)
     for d in ("configs", "traffic", "limits"):
         (base / d).mkdir()

@@ -172,7 +172,8 @@ def test_reference_imports_nothing_of_the_port():
         tops = {m.split(".")[0] for m in _imports(path)}
         assert not tops & {"repro_torch", "repro", "jax", "jaxlib"}, path
     code = ("import sys; sys.path[:0] = [%r, %r]; "
-            "import mdbench.reference.dp, mdbench.reference.md; "
+            "import mdbench.reference.se_e2_a, mdbench.reference.md, "
+            "mdbench.reference.shared; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))"
             % (str(ROOT / "src"), str(ROOT)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

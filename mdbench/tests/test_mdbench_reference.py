@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mdbench import inputs  # noqa: E402
-from mdbench.reference import dp, md  # noqa: E402
+from mdbench.reference import md, se_e2_a, shared  # noqa: E402
 
 CFG = {"ntypes": 2, "rcut": 3.0, "rcut_smth": 1.0, "sel": [6, 10],
        "type_map": ["O", "H"], "embed_widths": [4, 8, 8], "axis_neuron": 3,
@@ -79,12 +79,12 @@ def case():
 
 
 def _ref(w, pos, typ, box, precision="float32"):
-    model = dp.DPReference(CFG, w, torch.device("cpu"), precision=precision,
-                           block_atoms=4)
+    model = se_e2_a.Reference(CFG, w, torch.device("cpu"),
+                              precision=precision, block_atoms=4)
     x = torch.tensor(pos, dtype=torch.float32)
     b = torch.tensor(box, dtype=torch.float32)
     t = torch.tensor(typ, dtype=torch.int64)
-    nbr = dp.neighbor_table(x, b, CFG["rcut"] + 0.5)
+    nbr = shared.neighbor_table(x, b, CFG["rcut"] + 0.5)
     return model.energy_forces(x, t, b, nbr)
 
 
@@ -115,8 +115,8 @@ def test_neighbor_table_holds_exactly_the_pairs_within_the_cutoff():
     box = np.array([10.0, 11.0, 12.0])
     pos = rng.uniform(0, 1, (300, 3)) * box
     x = torch.tensor(pos, dtype=torch.float32)
-    nbr = dp.neighbor_table(x, torch.tensor(box, dtype=torch.float32), 4.0,
-                            block=64)
+    nbr = shared.neighbor_table(x, torch.tensor(box, dtype=torch.float32),
+                                4.0, block=64)
     for i in range(0, 300, 37):
         d = pos - pos[i]
         d -= box * np.round(d / box)
@@ -127,7 +127,7 @@ def test_neighbor_table_holds_exactly_the_pairs_within_the_cutoff():
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
     x = torch.tensor([1.0 + 2**-11, 1.0 + 2**-10 + 2**-11, -3.14159265])
-    assert dp.round_tf32(x).tolist() == [1.0, 1.0 + 2**-9, -3.140625]
+    assert shared.round_tf32(x).tolist() == [1.0, 1.0 + 2**-9, -3.140625]
 
 
 def test_start_velocities_have_no_drift_and_the_temperature():
@@ -137,3 +137,23 @@ def test_start_velocities_have_no_drift_and_the_temperature():
     assert float(torch.abs((v * mass[:, None]).sum(0)).max()) < 1e-3
     temp = 2 * md.kinetic(v, mass) / (3 * 20000 * md.KB_EV)
     assert abs(temp - 330.0) < 10.0
+
+
+# the parent's DPReference (commit c6f8a92, before families were files) on
+# this case on the CPU: the energy, and SHA-256 of the forces' bytes
+PARENT_REFERENCE = {
+    "float32": (2.700761705636978, "99169b5de7c83c2f6893f46148179afbee"
+                "d22d41cb084a6da4cf51e72c3c6c7e"),
+    "tf32": (2.7002905309200287, "9ccb731270b0e8bee3db3df0e4f77b0fe393e"
+             "5dbcacc4741ab595289cb3a27ac"),
+}
+
+
+@pytest.mark.parametrize("precision", sorted(PARENT_REFERENCE))
+def test_the_family_reference_is_the_one_before_bit_for_bit(case, precision):
+    import hashlib
+
+    w, pos, typ, box = case
+    e, f = _ref(w, pos, typ, box, precision)
+    assert (e, hashlib.sha256(f.numpy().tobytes()).hexdigest()) == \
+        PARENT_REFERENCE[precision]
