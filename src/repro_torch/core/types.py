@@ -111,3 +111,59 @@ COPPER_DP = DPConfig(
     axis_neuron=16,
     fit_widths=(240, 240, 240),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class DPA1Config:
+    """DPA-1, the attention-based Deep Potential (Zhang et al.,
+    arXiv:2208.08236), as DeePMD-kit's ``se_atten_v2`` descriptor writes it
+    (``tebd_input_mode`` "strip", ``smooth_type_embedding``) with one
+    type-conditioned fitting net.
+
+    Unlike :class:`DPConfig`, ``sel`` is ONE mixed-type section: the
+    neighbours of any type within ``rcut``, ``sel`` slots (also the
+    descriptor's normalization). The MD engines' list holds the pairs
+    within rcut + skin in type sections, and the model compacts the pairs
+    within rcut into its own section every step. The attention weights
+    are always gated by r^_j . r^_k (``attn_dotr``, as published).
+    """
+
+    ntypes: int = 2
+    rcut: float = 6.0
+    rcut_smth: float = 0.5
+    sel: int = 120
+    type_map: Tuple[str, ...] = ("O", "H")
+    embed_widths: Tuple[int, ...] = (25, 50, 100)   # N_s and N_t
+    axis_neuron: int = 16
+    tebd_dim: int = 8            # type embedding width
+    attn: int = 128              # q/k/v width
+    attn_layer: int = 2
+    fit_widths: Tuple[int, ...] = (240, 240, 240)
+    dtype: str = "float32"
+
+    @property
+    def nsel(self) -> int:
+        return int(self.sel)
+
+    @property
+    def m_embed(self) -> int:
+        return int(self.embed_widths[-1])
+
+    @property
+    def descriptor_dim(self) -> int:
+        return self.axis_neuron * self.m_embed
+
+    def validate(self) -> None:
+        if len(self.type_map) != self.ntypes:
+            raise ValueError("type_map must name every type")
+        for a, b in zip(self.embed_widths[:-1], self.embed_widths[1:]):
+            if b not in (a, 2 * a):
+                raise ValueError("embedding widths must double or repeat")
+        if self.axis_neuron > self.m_embed:
+            raise ValueError("axis_neuron must not exceed the embedding width")
+        if self.attn_layer < 0 or self.sel < 1:
+            raise ValueError("need sel >= 1 and attn_layer >= 0")
+
+
+# DeePMD-kit's examples/water/se_atten (se_atten_v2) at its published widths.
+WATER_DPA1 = DPA1Config()

@@ -36,12 +36,17 @@ from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import torch
 
-from repro_torch.core import dp_model
-from repro_torch.core.types import DPConfig
+from repro_torch import obs
+from repro_torch.core import dp_model, dpa1
+from repro_torch.core.types import DPA1Config, DPConfig
 from repro_torch.device import DeviceLike
 from repro_torch.md import integrator
 
 CPU = torch.device("cpu")
+
+#: the key of a potential's stats (and of the engines' per-step thermo)
+#: that holds how many pairs its own neighbour section could not take
+MODEL_EXCESS = "model_excess"
 
 
 # ============================================================== Potential
@@ -235,6 +240,81 @@ class LJPotential:
         e, f, virial = dp_model.energy_forces_from_rij(energy, pos, nlist,
                                                        box)
         return e, f, {"virial": virial}
+
+
+@dataclasses.dataclass(frozen=True)
+class DPA1Potential:
+    """DPA-1 (``core/dpa1.py``): attention over each atom's neighbours in
+    one mixed-type section of its own.
+
+    The engines' list holds the pairs within rcut + skin in type sections
+    (``sel``, escalated by the engines like any list); each evaluation
+    compacts the pairs within rcut into the model's section of ``slots``
+    slots and reports the pairs that did not fit as ``stats["model_excess"]``
+    (> 0: the engines grow ``slots`` with :meth:`with_capacity` and run the
+    stretch again, ``md/stepper.fit_section`` / ``grow_section``). The
+    normalization stays ``cfg.sel`` whatever ``slots`` is.
+    """
+
+    cfg: DPA1Config
+    capacity: Optional[int] = None          # the model's slots; cfg.sel
+    nbr_sel: Optional[Tuple[int, ...]] = None   # the list's; cfg.sel each
+
+    @property
+    def sel(self) -> Tuple[int, ...]:
+        return tuple(self.nbr_sel or (self.cfg.sel,) * self.cfg.ntypes)
+
+    @property
+    def slots(self) -> int:
+        return int(self.capacity or self.cfg.sel)
+
+    @property
+    def rcut(self) -> float:
+        return float(self.cfg.rcut)
+
+    @property
+    def type_map(self) -> Tuple[str, ...]:
+        return tuple(self.cfg.type_map)
+
+    def layout_cfg(self) -> DPConfig:
+        """A layout-only DPConfig (the list's type sections and rcut) for
+        the neighbour machinery."""
+        return DPConfig(ntypes=self.cfg.ntypes, rcut=self.cfg.rcut,
+                        rcut_smth=self.cfg.rcut_smth, sel=self.sel,
+                        type_map=self.type_map)
+
+    def with_layout(self, sel, nsel_norm=None):
+        del nsel_norm            # pinned to cfg.sel, whatever the layout
+        return dataclasses.replace(self, nbr_sel=tuple(sel))
+
+    def with_capacity(self, slots: int) -> "DPA1Potential":
+        return dataclasses.replace(self, capacity=int(slots))
+
+    def init_params(self, gen: torch.Generator, device: DeviceLike = "cuda"):
+        return dpa1.init_params(gen, self.cfg, device=device)
+
+    def section_count(self, pos, nlist, box=None) -> torch.Tensor:
+        """(2,) int64 on the device: the pairs of ``nlist`` within rcut,
+        and the excess over the model's slots."""
+        _, excess, live = dpa1.compact(pos, nlist, box, self.rcut, self.slots)
+        return torch.stack([live, excess.to(torch.int64)])
+
+    def energy_forces(self, params, pos, typ, nlist, nmask=None, box=None):
+        with obs.span("dpa1.force", atoms=int(pos.shape[0]),
+                      slots=self.slots):
+            e, f, virial, excess = dpa1.energy_forces(
+                params, self.cfg, pos, nlist, typ, box, cap=self.slots)
+        return e, f, {"virial": virial, MODEL_EXCESS: excess}
+
+    def atomic_energy(self, params, rij, nmask, typ, comm=None,
+                      nbr_type=None):
+        """Per-atom energies of pair vectors ``rij`` in the model's own
+        section, ``nbr_type`` their types; one process only."""
+        if comm is not None or nbr_type is None:
+            raise ValueError("DPA-1 needs the neighbours' types and runs "
+                             "on one process")
+        return dpa1.atomic_energy(params, self.cfg, rij, nmask, typ,
+                                  nbr_type)
 
 
 # =============================================================== Ensemble
@@ -500,10 +580,16 @@ def make_potential(name: str, cfg: Optional[DPConfig] = None,
     "dp" wraps ``cfg`` (optionally with an explicit ``impl`` rung; a
     tabulated rung gets the adapter that owns its tables);
     "quintic"/"cheb" are tabulated DP; "lj" takes :class:`LJPotential`
-    keyword overrides and needs no DP config at all.
+    keyword overrides and needs no DP config at all; "dpa1" takes a
+    :class:`DPA1Config`.
     """
     if name == "lj":
         return LJPotential(**lj_kw)
+    if name == "dpa1":
+        if not isinstance(cfg, DPA1Config):
+            raise ValueError("potential 'dpa1' needs a DPA1Config")
+        cfg.validate()
+        return DPA1Potential(cfg)
     if cfg is None:
         raise ValueError(f"potential {name!r} needs a DPConfig")
     if name == "dp":

@@ -66,6 +66,8 @@ class MDResult:
     graph_captures: int = 0       # outer engine on the card: CUDA graphs
     graph_replays: int = 0        # captured, and replays of them
     capture_s: float = 0.0        # part of wall_s spent warming up + capturing
+    section_slots: int = 0        # a potential's own section at the end (0:
+    #                               none), escalations of it in escalations
 
     @property
     def us_per_step_atom(self) -> float:
@@ -162,8 +164,11 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
                               thermo_every=spec.thermo_every, barostat=baro)
 
     # ------------------------------------------ device paths (scan / outer)
+    policy = spec.escalation or stepper.EscalationPolicy()
     build = stepper.build_neighbors_escalating(
         pot.layout_cfg(), nspec, box_np, pos, typ, spec.escalation)
+    pot, grown = stepper.fit_section(pot, build.nlist, pos, boxt, policy)
+    build = build._replace(escalations=build.escalations + grown)
     pot_run = pot.with_layout(build.spec.sel)
     with obs.span("model.first_force"):
         _, f, _ = pot_run.energy_forces(params, pos, typ, build.nlist,
@@ -183,6 +188,10 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
 
     eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
     carry = stepper.MDCarry(pos, vel, f, ens, boxt, baro_state)
+    # a potential with a section of its own reports its excess in the
+    # thermo: the segment then runs again, from its start, with the
+    # section grown
+    sectioned = hasattr(pot, "section_count")
 
     thermo: List[Dict[str, float]] = []
     stress_segs: List[np.ndarray] = []
@@ -221,14 +230,35 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
                 if build.escalations:
                     escalations += build.escalations
                     ref_box_escal = box_now
+                pot, grown = stepper.fit_section(pot, build.nlist, carry.pos,
+                                                 carry.box, policy)
+                escalations += grown
+                if build.escalations or grown:
                     pot_run = pot.with_layout(build.spec.sel)
                     eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
-            with obs.span("driver.segment", steps=seg_len):
-                carry, th = eng.run(carry, seg_len, params, build.nlist, typ,
-                                    masses, spec.dt_fs)
-            # ONE device->host sync per segment fetches the stacked thermo
-            with obs.span("driver.fetch"):
-                th = stepper.fetch_thermo(th)
+            for attempt in range(policy.max_attempts + 1):
+                snap = stepper.snapshot(carry) if sectioned else None
+                with obs.span("driver.segment", steps=seg_len):
+                    carry, th = eng.run(carry, seg_len, params, build.nlist,
+                                        typ, masses, spec.dt_fs)
+                # ONE device->host sync per segment fetches the stacked
+                # thermo
+                with obs.span("driver.fetch"):
+                    th = stepper.fetch_thermo(th)
+                excess = stepper.section_excess(th)
+                if excess <= 0:
+                    break
+                if attempt == policy.max_attempts:
+                    raise RuntimeError(
+                        f"the model's section overflows after "
+                        f"{policy.max_attempts} segment replays "
+                        f"({pot.slots} slots)")
+                host_syncs += 1
+                pot = stepper.grow_section(pot, policy, excess, "segment")
+                escalations += 1
+                pot_run = pot.with_layout(build.spec.sel)
+                eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
+                carry = stepper.restore(snap)
             thermo.extend(stepper.thermo_rows(
                 th["pe"], th["ke"], step_base, spec.steps, spec.thermo_every,
                 n, press=th["press"], vol=th["vol"]))
@@ -246,7 +276,8 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
                     final_box=final_box,
                     stress=(np.concatenate(stress_segs)
                             if stress_segs else None),
-                    grid_rebuilds=grid_rebuilds, sel=tuple(build.spec.sel))
+                    grid_rebuilds=grid_rebuilds, sel=tuple(build.spec.sel),
+                    section_slots=getattr(pot, "slots", 0))
 
 
 def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
@@ -264,7 +295,8 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
     flag instead means a barostat moved the box past its static cell grid:
     the replay re-derives the grid from the box. The snapshot holds the
     ensemble's and barostat's generator states, so a replayed chunk draws
-    the same noise.
+    the same noise. A potential with a section of its own reports its excess
+    in the chunk's thermo: the chunk is replayed with the section grown.
     """
     policy = escalation or stepper.EscalationPolicy()
     n = carry.pos.shape[0]
@@ -287,7 +319,7 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
                                                       chunk_segments):
             for attempt in range(policy.max_attempts + 1):
                 with obs.span("outer.chunk", attempt=attempt, segments=n_segs):
-                    key = (spec_n, grid_key)
+                    key = (spec_n, grid_key, pot)
                     if key not in engines:
                         engines[key] = stepper.md_outer_engine(
                             pot.with_layout(spec_n.sel), ens_obj, spec_n,
@@ -318,21 +350,28 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
                     grid_rebuilds += 1
                 else:
                     overflow_worst = max(overflow_worst, ovf)
-                    if ovf <= 0:
+                    excess = stepper.section_excess(host)
+                    if ovf <= 0 and excess <= 0:
                         carry = out
                         break
-                    # fold the carried-box volume ratio into the growth,
-                    # then advance the reference box: a later retry folds
-                    # only ADDITIONAL shrink
-                    vol_scale = policy.volume_scale(ref_box_escal, box_out)
-                    ref_box_escal = box_out
-                    spec_n = dataclasses.replace(
-                        spec_n,
-                        sel=tuple(policy.grow(s, vol_scale)
-                                  for s in spec_n.sel),
-                        cell_capacity=policy.grow(spec_n.cell_capacity,
-                                                  vol_scale))
-                    escalations += 1
+                    if ovf > 0:
+                        # fold the carried-box volume ratio into the growth,
+                        # then advance the reference box: a later retry
+                        # folds only ADDITIONAL shrink
+                        vol_scale = policy.volume_scale(ref_box_escal,
+                                                        box_out)
+                        ref_box_escal = box_out
+                        spec_n = dataclasses.replace(
+                            spec_n,
+                            sel=tuple(policy.grow(s, vol_scale)
+                                      for s in spec_n.sel),
+                            cell_capacity=policy.grow(spec_n.cell_capacity,
+                                                      vol_scale))
+                        escalations += 1
+                    if excess > 0:
+                        pot = stepper.grow_section(pot, policy, excess,
+                                                   "chunk")
+                        escalations += 1
                 with obs.span("outer.restore"):
                     carry = stepper.restore(snap)
             else:
@@ -362,7 +401,8 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
                     graph_captures=sum(e.captures for e in engines.values()),
                     graph_replays=sum(e.replays for e in engines.values()),
                     capture_s=sum(e.capture_ns
-                                  for e in engines.values()) * 1e-9)
+                                  for e in engines.values()) * 1e-9,
+                    section_slots=getattr(pot, "slots", 0))
 
 
 def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
@@ -388,12 +428,15 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
     if overflow_worst > 0:
         raise RuntimeError(f"neighbor overflow {overflow_worst} at init")
     with obs.span("model.first_force"):
-        e, f, _ = pot.energy_forces(params, pos, typ, nlist, box=boxt)
+        e, f, stats = pot.energy_forces(params, pos, typ, nlist, box=boxt)
         _sync(dev)
 
     thermo: List[Dict[str, float]] = []
     stress_steps = []
-    ovf_flags = []
+    # a potential's own section is checked with the lists' flags, after
+    # the run (this loop has no replay)
+    ovf_flags = [stats[api.MODEL_EXCESS]] if api.MODEL_EXCESS in stats \
+        else []
     grid_rebuilds = 0
     with obs.timed("driver.loop") as loop, torch.no_grad():
         for step in range(steps):
@@ -414,6 +457,8 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
                 ovf_flags.append(ovf)       # device scalar; no sync here
             e, f_new, stats = pot.energy_forces(params, pos, typ, nlist,
                                                 box=boxt)
+            if api.MODEL_EXCESS in stats:
+                ovf_flags.append(stats[api.MODEL_EXCESS])
             vel = ens_obj.half_kick(vel, f_new, masses, dt_fs)
             vel, ens = ens_obj.finalize(vel, masses, dt_fs, ens)
             f = f_new

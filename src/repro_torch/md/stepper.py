@@ -216,6 +216,57 @@ def build_neighbors_escalating(
         f"cell_capacity={spec.cell_capacity})")
 
 
+# ------------------------------ a potential's own neighbour section
+
+def section_excess(host_thermo: Dict[str, np.ndarray]) -> int:
+    """The most pairs that a potential's own section could not take over
+    the steps of fetched thermo (0 where the potential has no section)."""
+    x = host_thermo.get(api.MODEL_EXCESS)
+    return 0 if x is None else max(int(np.max(x)), 0)
+
+
+def grow_section(potential: api.Potential, policy: EscalationPolicy,
+                 excess: int, where: str) -> api.Potential:
+    """``potential`` with its section grown by the policy until it holds
+    ``excess`` more pairs; one ``model.escalate`` span, its counters the
+    slots before and after, the excess and ``where`` it was found
+    (``build``, ``segment`` or ``chunk``)."""
+    slots = potential.slots
+    grown = policy.grow(slots)
+    while grown < slots + excess:
+        grown = policy.grow(grown)
+    with obs.span("model.escalate", where=where, excess=int(excess),
+                  slots=slots, grown=grown):
+        return potential.with_capacity(grown)
+
+
+def fit_section(potential: api.Potential, nlist: torch.Tensor,
+                pos: torch.Tensor, box: torch.Tensor,
+                policy: Optional[EscalationPolicy] = None
+                ) -> Tuple[api.Potential, int]:
+    """At an accepted host build: a potential that compacts the list into
+    a section of its own (``section_count``, DPA-1's) counted at ``pos``,
+    its section grown until the pairs within its cut-off fit; returns the
+    potential and its escalations. Each count is a ``model.section`` span
+    with the counters ``atoms``, ``slots``, ``live`` (the pairs within the
+    cut-off) and ``excess``, fetched in one transfer. A potential without a
+    section comes back as it is."""
+    if not hasattr(potential, "section_count"):
+        return potential, 0
+    policy = policy or EscalationPolicy()
+    for grown in range(policy.max_attempts):
+        with obs.span("model.section", atoms=int(pos.shape[0]),
+                      slots=potential.slots) as sp:
+            live, excess = potential.section_count(pos, nlist, box).tolist()
+            sp.set(live=live, excess=excess)
+        if excess <= 0:
+            return potential, grown
+        potential = grow_section(potential, policy, excess, "build")
+    raise RuntimeError(f"the model's section overflows after "
+                       f"{policy.max_attempts} escalations ({potential.slots}"
+                       f" slots)")
+
+
 # --------------------------------------------- single-process MD step
 
 class MDCarry(NamedTuple):
@@ -243,7 +294,9 @@ def make_md_step(potential: api.Potential, ensemble: api.Ensemble,
 
     ``(MDCarry, params, nlist, typ, masses, dt) -> (MDCarry, thermo)``; the
     thermo holds pe/ke plus the pressure observables (stress tensor (3, 3)
-    eV/A^3, scalar pressure, volume) from the potential's virial. After the
+    eV/A^3, scalar pressure, volume) from the potential's virial, and the
+    excess of a potential's own neighbour section (``api.MODEL_EXCESS``)
+    where it has one, so that it reaches the host with the thermo. After the
     thermostat the ``barostat`` (if any) rescales box, positions and
     velocities; without one the box is never touched.
     """
@@ -265,6 +318,8 @@ def make_md_step(potential: api.Potential, ensemble: api.Ensemble,
                                                  baro, dt)
         thermo = {"pe": e, "ke": ke, "stress": stress,
                   "press": integrator.pressure_of(stress), "vol": vol}
+        if api.MODEL_EXCESS in stats:
+            thermo[api.MODEL_EXCESS] = stats[api.MODEL_EXCESS]
         return MDCarry(pos, vel, f_new, ens, box, baro), thermo
 
     return md_step
