@@ -357,16 +357,13 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
                     if ovf > 0:
                         # fold the carried-box volume ratio into the growth,
                         # then advance the reference box: a later retry
-                        # folds only ADDITIONAL shrink
+                        # folds only ADDITIONAL shrink. The in-graph
+                        # rebuilds' flag is merged, so the cause is
+                        # unknown and both capacities grow.
                         vol_scale = policy.volume_scale(ref_box_escal,
                                                         box_out)
                         ref_box_escal = box_out
-                        spec_n = dataclasses.replace(
-                            spec_n,
-                            sel=tuple(policy.grow(s, vol_scale)
-                                      for s in spec_n.sel),
-                            cell_capacity=policy.grow(spec_n.cell_capacity,
-                                                      vol_scale))
+                        spec_n, _ = policy.escalate(spec_n, None, vol_scale)
                         escalations += 1
                     if excess > 0:
                         pot = stepper.grow_section(pot, policy, excess,

@@ -6,11 +6,11 @@ step over a ``rebuild_every``-step segment, :class:`SegmentEngine` runs the
 step in a Python loop under ``torch.no_grad()``; the per-step thermo stays
 on the device, stacked, and the host fetches it ONCE per segment
 (:func:`fetch_thermo`). Neighbor overflow is checked at segment boundaries
-with a capacity-escalation retry: capacities grow geometrically (by the
-carried box's volume ratio too, under a barostat) and the list is rebuilt
-from the same, still valid, positions. The descriptor normalization stays
-pinned to the model's native ``cfg.nsel`` (``nsel_norm``), so escalated
-capacities change padding, never physics.
+with a capacity-escalation retry: the capacity that overflowed grows
+geometrically (by the carried box's volume ratio too, under a barostat)
+and the list is rebuilt from the same, still valid, positions. The
+descriptor normalization stays pinned to the model's native ``cfg.nsel``
+(``nsel_norm``), so escalated capacities change padding, never physics.
 
 :class:`OuterEngine` is the counterpart of the reference's jitted scan over
 segments: one segment is the neighbor rebuild at the carried positions and
@@ -122,6 +122,34 @@ class EscalationPolicy:
         n_new = max(int(n * factor), n + 1)
         return -(-n_new // self.round_to) * self.round_to
 
+    def escalate(self, spec: neighbors.NeighborSpec,
+                 excess: Optional[Tuple[int, ...]], scale: float = 1.0
+                 ) -> Tuple[neighbors.NeighborSpec, Tuple[str, ...]]:
+        """``spec`` with the capacity that overflowed grown, and the names
+        of what grew (``"sel"``, ``"cell"``).
+
+        ``excess`` is what a build's flag is made of: ``(section_excess,
+        bin_excess)``, ``(section_excess,)`` on the brute-force path, which
+        has no bins, or None where only the merged flag is known. A
+        section's excess grows every type section's ``sel``, a bin's the
+        ``cell_capacity``; an unknown cause grows both. While bins
+        overflow, the candidates they drop go uncounted, so the sections'
+        excess can read low: the rebuild shows a section that really
+        overflows. ``scale`` (see :meth:`grow`) folds into whatever grows.
+        """
+        if excess is None:
+            grew = ("sel", "cell")
+        else:
+            grew = (("sel",) * (excess[0] > 0)
+                    + ("cell",) * (len(excess) > 1 and excess[1] > 0))
+        if "sel" in grew:
+            spec = dataclasses.replace(
+                spec, sel=tuple(self.grow(s, scale) for s in spec.sel))
+        if "cell" in grew:
+            spec = dataclasses.replace(
+                spec, cell_capacity=self.grow(spec.cell_capacity, scale))
+        return spec, grew
+
     @staticmethod
     def volume_scale(box_ref, box_now) -> float:
         """Launch-volume / current-volume, clamped >= 1 (grow-only)."""
@@ -166,8 +194,9 @@ def build_neighbors_escalating(
     """Build the neighbor list; on overflow escalate capacities and retry.
 
     This is the host sync of a segment boundary: the overflow flag of the
-    fresh list decides escalation. Escalation grows every type-section
-    capacity and the cell-bin capacity, then rebuilds from the same
+    fresh list decides escalation. Escalation grows what overflowed
+    (:meth:`EscalationPolicy.escalate`): every type section's capacity,
+    the cell-bin capacity, or both; then it rebuilds from the same
     positions. The returned ``cfg_run`` carries the escalated ``sel``;
     callers evaluate it with ``nsel_norm=cfg.nsel``. The cell grid is
     derived from ``box`` on every call. ``ref_box`` (the box the last
@@ -178,6 +207,7 @@ def build_neighbors_escalating(
     (``section_excess``, ``bin_excess``: > 0 where a type section or a cell
     bin ran out; ``bin_excess`` None on the brute-force path) and how many
     slots the list ``filled``; they come to the host in the flag's fetch.
+    An attempt that escalates names what it ``grew``.
     """
     policy = policy or EscalationPolicy()
     box_np = np.asarray(box, float).reshape(-1)
@@ -196,18 +226,19 @@ def build_neighbors_escalating(
             got = torch.cat([ovf.reshape(1).to(torch.int64),
                              parts.to(torch.int64),
                              (nlist >= 0).sum().reshape(1)]).tolist()
-            ovf = got[0]
-            sp.set(overflow=ovf, section_excess=got[1],
-                   bin_excess=got[2] if len(got) == 4 else None,
+            ovf, excess = got[0], tuple(got[1:-1])
+            sp.set(overflow=ovf, section_excess=excess[0],
+                   bin_excess=excess[1] if len(excess) == 2 else None,
                    filled=got[-1])
+            if ovf > 0:
+                grown, grew = policy.escalate(spec, excess, scale)
+                sp.set(grew=grew)
         worst = ovf if worst is None else max(worst, ovf)
         if ovf <= 0:
             cfg_run = (cfg if tuple(spec.sel) == tuple(cfg.sel)
                        else dataclasses.replace(cfg, sel=tuple(spec.sel)))
             return NeighborBuild(nlist, cfg_run, spec, escalations, worst)
-        spec = dataclasses.replace(
-            spec, sel=tuple(policy.grow(s, scale) for s in spec.sel),
-            cell_capacity=policy.grow(spec.cell_capacity, scale))
+        spec = grown
         scale = 1.0     # the density jump is folded in once
         escalations += 1
     raise RuntimeError(

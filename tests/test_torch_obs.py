@@ -5,7 +5,9 @@ The recorder alone (nesting, call ids, threads, its bound, disabled), then
 ``run_simulation`` on a small FCC crystal under a Lennard-Jones potential
 with each engine: each call's spans, the loop and capture spans against
 ``wall_s`` and ``capture_s``, the neighbour counters that say which
-capacity overflowed, and the same results with the recorder disabled.
+capacity overflowed, the escalation rule that grows only that capacity
+(a run escalated by its bins is the run at the layout that grows both),
+and the same results with the recorder disabled.
 
 The last test needs an NVIDIA GPU and skips without one: with a profiler
 over a captured run, the profile holds no row of the port's spans, and on
@@ -26,6 +28,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.core import dp_model  # noqa: E402
+from repro_torch.core.types import DPConfig  # noqa: E402
 from repro_torch.md import api, lattice, neighbors, stepper  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -223,6 +227,101 @@ def test_small_sections_count_a_section_escalation(engine):
     assert [b["attempt"] for b in builds[:len(over) + 1]] \
         == list(range(len(over) + 1))
     assert builds[len(over)]["sel"] == res.sel
+
+
+@pytest.mark.parametrize("overflow", ["bins", "section"])
+def test_only_the_capacity_that_overflowed_grows(overflow, monkeypatch):
+    # bins of 8 hold ~10 atoms a cell; 24 slots hold 42 neighbours
+    if overflow == "bins":
+        _small_bins(monkeypatch, 8)
+    res = _run("scan", sel=(48,) if overflow == "bins" else (24,))
+    (call,) = obs.calls(1)
+    builds = [s.attrs for s in call.spans if s.name == "nbr.build"]
+    grew = [b["grew"] for b in builds if b["overflow"] > 0]
+    assert res.escalations == len(grew) >= 1
+    assert all("grew" not in b for b in builds if b["overflow"] <= 0)
+    if overflow == "bins":
+        assert grew == [("cell",)] * len(grew) and res.sel == (48,)
+        assert builds[-1]["cell_capacity"] > 8
+    else:
+        assert grew == [("sel",)] * len(grew) and res.sel[0] >= 42
+        assert {b["cell_capacity"] for b in builds} == {64}
+
+
+@pytest.mark.parametrize("excess,grew", [
+    ((0, 6), ("cell",)), ((18, -50), ("sel",)), ((18, 6), ("sel", "cell")),
+    (None, ("sel", "cell")), ((18,), ("sel",))],
+    ids=["bins", "section", "both", "unknown", "brute_force"])
+@pytest.mark.parametrize("scale", [1.0, 2.5])
+def test_escalate_grows_what_overflowed(excess, grew, scale):
+    policy = stepper.EscalationPolicy()
+    spec = neighbors.NeighborSpec(rcut_nbr=4.5, sel=(24, 40), cell_capacity=8)
+    got, names = policy.escalate(spec, excess, scale)
+    assert names == grew and got.rcut_nbr == spec.rcut_nbr
+    assert got.sel == (tuple(policy.grow(s, scale) for s in spec.sel)
+                       if "sel" in grew else spec.sel)
+    assert got.cell_capacity == (policy.grow(8, scale) if "cell" in grew
+                                 else 8)
+    assert policy.grow(24, 2.5) == 64 != policy.grow(24)
+
+
+def test_the_volume_fold_is_taken_once():
+    # a launch box 2.5x the volume: the first escalation grows both by 2.5,
+    # the later ones grow the sections alone by the policy's 1.6
+    pos, typ, box = _system()
+    spec = neighbors.NeighborSpec(rcut_nbr=4.5, sel=(8,), cell_capacity=8)
+    cfg = api.LJPotential(rcut_lj=4.0, sel=(8,)).layout_cfg()
+    build = stepper.build_neighbors_escalating(
+        cfg, spec, box, torch.as_tensor(pos, dtype=torch.float32),
+        torch.as_tensor(typ), ref_box=np.asarray(box) * 2.5 ** (1 / 3))
+    builds = [r.attrs for r in obs.records() if r.name == "nbr.build"]
+    assert [(b["sel"], b["cell_capacity"], b.get("grew")) for b in builds] \
+        == [((8,), 8, ("sel", "cell")), ((24,), 24, ("sel",)),
+            ((40,), 24, ("sel",)), ((64,), 24, None)]
+    assert build.escalations == 3 and build.spec.sel == (64,)
+
+
+def test_a_run_escalated_by_its_bins_is_the_run_at_the_grown_layout(
+        monkeypatch):
+    # a small DP model, its descriptor normalised by its own 48 slots: the
+    # bins' escalation keeps 48 slots where growing both took 80
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(24, 24, 24))
+    params = dp_model.init_dp_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    pot = api.make_potential("dp", cfg)
+    pos, typ, box = _system()
+    runs = []
+    for start, cap in ((pot, 8), (pot.with_layout((80,)), 16)):
+        _small_bins(monkeypatch, cap)
+        spec = api.SimulationSpec(start, api.NVE(), steps=12, rebuild_every=5,
+                                  thermo_every=1, skin=0.5, engine="scan")
+        runs.append(api.Simulation(spec).run(params, pos, typ, box,
+                                             device="cpu"))
+    a, b = runs
+    assert (a.escalations, a.sel, b.escalations, b.sel) == (1, (48,), 0, (80,))
+    assert len(a.thermo) == len(b.thermo) == 12
+    for ra, rb in zip(a.thermo, b.thermo):
+        for key in ("pe", "ke", "etot"):
+            np.testing.assert_allclose(ra[key], rb[key], rtol=1e-6,
+                                       atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(a.final_pos, b.final_pos, atol=1e-6)
+    np.testing.assert_allclose(a.final_vel, b.final_vel, atol=1e-7)
+    # the forces at the end, each at its own run's layout
+    forces = []
+    for res in runs:
+        x = torch.as_tensor(res.final_pos, dtype=torch.float32)
+        nspec = neighbors.NeighborSpec(rcut_nbr=4.5, sel=res.sel,
+                                       cell_capacity=16)
+        build = stepper.build_neighbors_escalating(
+            pot.layout_cfg(), nspec, box, x, torch.as_tensor(typ))
+        assert build.escalations == 0
+        forces.append(pot.with_layout(res.sel).energy_forces(
+            params, x, torch.as_tensor(typ), build.nlist,
+            box=stepper.pack_box(box, torch.device("cpu")))[1])
+    np.testing.assert_allclose(forces[0].numpy(), forces[1].numpy(),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("cells", [3, 2], ids=["cell_list", "brute_force"])
