@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import dp_model
 from repro_torch.core.types import DPConfig
 from repro_torch.device import resolve_device
-from repro_torch.md import driver, lattice, neighbors
+from repro_torch.md import api, lattice, neighbors
 from repro_torch.train.dp_trainer import train_dp
 
 ap = argparse.ArgumentParser()
@@ -42,9 +42,11 @@ params_tab = dp_model.tabulate_model(params, cfg, "cheb")
 # 4. Run MD with the paper's protocol (velocity Verlet, neighbor skin).
 print("\n== molecular dynamics (tabulated model) ==")
 pos, typ, box = lattice.fcc_copper(3, 3, 3)
-res = driver.run_md(cfg, params_tab, pos, typ, box, steps=99, dt_fs=1.0,
-                    temp_k=100.0, impl="cheb", thermo_every=33,
-                    skin=0.5, rebuild_every=20, device=dev)
+md = api.SimulationSpec(
+    potential=api.DPPotential(cfg, impl="cheb", nsel_norm=cfg.nsel),
+    ensemble=api.NVE(), steps=99, dt_fs=1.0, temp_k=100.0, thermo_every=33,
+    skin=0.5, rebuild_every=20)
+res = api.Simulation(md).run(params_tab, pos, typ, box, device=dev)
 for row in res.thermo:
     print(f"  step {row['step']:3d}  E_pot {row['pe']:+.4f} eV  "
           f"E_tot {row['etot']:+.4f} eV  T {row['temp']:6.1f} K")

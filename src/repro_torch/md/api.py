@@ -252,7 +252,7 @@ class DPA1Potential:
     compacts the pairs within rcut into the model's section of ``slots``
     slots and reports the pairs that did not fit as ``stats["model_excess"]``
     (> 0: the engines grow ``slots`` with :meth:`with_capacity` and run the
-    stretch again, ``md/stepper.fit_section`` / ``grow_section``). The
+    stretch again, ``md/stepper.Capacities``). The
     normalization stays ``cfg.sel`` whatever ``slots`` is.
     """
 

@@ -13,13 +13,15 @@ Three stepping engines share this entry point, as in the reference:
   engine="outer"  the outer engine (``md/stepper.py`` ``OuterEngine``): the
                   neighbor rebuild runs on the device inside each segment,
                   and on the card each segment is a captured CUDA graph,
-                  replayed. One host sync and overflow check per *chunk* of
-                  segments, with a chunk replay from a snapshot on
-                  capacity overflow.
+                  replayed. One host sync per *chunk* of segments.
   engine="scan"   (default) the segment engine: a step loop per rebuild
-                  segment, thermo fetched once per segment, overflow checked
-                  at segment boundaries (host rebuild) with escalation.
+                  segment, a host rebuild before each, thermo fetched once
+                  per segment.
   engine="python" the per-step loop, kept as the trajectory reference.
+
+The scan and outer engines share one loop over stretches of steps (a
+segment or a chunk, :func:`_run_chunks`); ``stepper.Capacities`` holds the
+run's capacities and decides after each stretch whether it runs again.
 
 The engines agree on the physics: within the skin buffer every pair inside
 rcut is in both lists and pairs beyond rcut contribute exactly zero.
@@ -140,7 +142,6 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
               typ: np.ndarray, box: np.ndarray,
               dev: torch.device) -> MDResult:
     pot, ens_obj, baro = spec.potential, spec.ensemble, spec.barostat
-    n = len(pos)
     masses = torch.as_tensor(lattice.masses_for(pot.type_map, np.asarray(typ)),
                              dtype=torch.float32, device=dev)
     nspec = neighbors.NeighborSpec(rcut_nbr=pot.rcut + spec.skin,
@@ -164,120 +165,131 @@ def _simulate(spec: api.SimulationSpec, params: Any, pos: np.ndarray,
                               thermo_every=spec.thermo_every, barostat=baro)
 
     # ------------------------------------------ device paths (scan / outer)
-    policy = spec.escalation or stepper.EscalationPolicy()
-    build = stepper.build_neighbors_escalating(
-        pot.layout_cfg(), nspec, box_np, pos, typ, spec.escalation)
-    pot, grown = stepper.fit_section(pot, build.nlist, pos, boxt, policy)
-    build = build._replace(escalations=build.escalations + grown)
-    pot_run = pot.with_layout(build.spec.sel)
+    caps = stepper.Capacities(pot, nspec, box_np, spec.escalation,
+                              moving_box=baro is not None)
+    nlist, pot_run = caps.host_build(pos, typ, boxt)
     with obs.span("model.first_force"):
-        _, f, _ = pot_run.energy_forces(params, pos, typ, build.nlist,
-                                        box=boxt)
+        _, f, _ = pot_run.energy_forces(params, pos, typ, nlist, box=boxt)
         _sync(dev)
-
+    aux = (params, typ, masses, spec.dt_fs)
     if spec.engine == "outer":
         carry = stepper.OuterCarry(
             pos, vel, f, torch.zeros((), dtype=torch.int32, device=dev), ens,
             boxt, baro_state)
-        return _run_md_outer(pot, ens_obj, params, carry, typ, box_np, masses,
-                             build, dev, steps=spec.steps, dt_fs=spec.dt_fs,
-                             rebuild_every=spec.rebuild_every,
-                             thermo_every=spec.thermo_every,
-                             chunk_segments=spec.chunk_segments,
-                             escalation=spec.escalation, barostat=baro)
+        stretch = _OuterChunks(caps, ens_obj, baro, aux, spec.chunk_segments)
+    else:
+        carry = stepper.MDCarry(pos, vel, f, ens, boxt, baro_state)
+        stretch = _ScanSegments(caps, ens_obj, baro, aux, nlist=nlist)
+    return _run_chunks(stretch, carry, dev, steps=spec.steps,
+                       rebuild_every=spec.rebuild_every,
+                       thermo_every=spec.thermo_every)
 
-    eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
-    carry = stepper.MDCarry(pos, vel, f, ens, boxt, baro_state)
-    # a potential with a section of its own reports its excess in the
-    # thermo: the segment then runs again, from its start, with the
-    # section grown
-    sectioned = hasattr(pot, "section_count")
 
+class _Stretch:
+    """An engine's steps between two fetches of the host: ``run`` gives the
+    carry after ``n_segs`` segments of ``seg_len`` steps and their thermo."""
+
+    def __init__(self, caps: stepper.Capacities, ens_obj: api.Ensemble,
+                 baro: Optional[api.Barostat], aux: Tuple[Any, ...],
+                 chunk_segments: int = 1,
+                 nlist: Optional[torch.Tensor] = None):
+        self.caps, self.ens_obj, self.baro, self.aux = caps, ens_obj, baro, aux
+        self.nlist, self.chunk_segments = nlist, chunk_segments
+        self.engines: Dict[Tuple[Any, ...], stepper.OuterEngine] = {}
+
+    def boundary(self, carry) -> None:
+        """Before each stretch but the first."""
+
+    def restore(self, snap: stepper.Snapshot):
+        return stepper.restore(snap)
+
+
+class _ScanSegments(_Stretch):
+    """A segment of the scan engine, its list built on the host."""
+
+    where, engine = "segment", "scan"
+
+    def boundary(self, carry: stepper.MDCarry) -> None:
+        self.nlist, _ = self.caps.host_build(carry.pos, self.aux[1], carry.box)
+
+    def run(self, carry, attempt: int, n_segs: int, seg_len: int):
+        eng = stepper.md_segment_engine(self.caps.run_potential, self.ens_obj,
+                                        self.baro)
+        params, typ, masses, dt = self.aux
+        with obs.span("driver.segment", steps=seg_len):
+            carry, th = eng.run(carry, seg_len, params, self.nlist, typ,
+                                masses, dt)
+        with obs.span("driver.fetch"):      # ONE device->host sync a segment
+            return carry, stepper.fetch_thermo(th)
+
+
+class _OuterChunks(_Stretch):
+    """A chunk of the outer engine's segments, its lists built on the
+    device; one engine a layout (on the card, one capture a length)."""
+
+    where, engine = "chunk", "outer"
+
+    def run(self, carry, attempt: int, n_segs: int, seg_len: int):
+        caps = self.caps
+        with obs.span("outer.chunk", attempt=attempt, segments=n_segs):
+            key = (caps.spec, caps.grid_key, caps.potential)
+            if key not in self.engines:
+                self.engines[key] = stepper.md_outer_engine(
+                    caps.run_potential, self.ens_obj, caps.spec,
+                    caps.grid_key, self.baro)
+            out, th = self.engines[key].run(carry, n_segs, seg_len, *self.aux)
+            th["overflow"] = out.overflow.reshape(1).expand(n_segs)
+            th["box"] = out.box.reshape(1, 3).expand(n_segs, 3)
+            with obs.span("outer.fetch"):
+                return out, stepper.fetch_thermo(th)
+
+    def restore(self, snap: stepper.Snapshot):
+        with obs.span("outer.restore"):
+            return stepper.restore(snap)
+
+
+def _run_chunks(stretch: _Stretch, carry, dev: torch.device, *, steps: int,
+                rebuild_every: int, thermo_every: int) -> MDResult:
+    """The scan and outer engines' loop over stretches (``chunk_schedule``):
+    each runs, fetches its thermo once and, while ``caps.regrow`` says so,
+    runs again from a snapshot (taken where ``caps.can_regrow``; it holds
+    the generators' states, so a replay draws the same noise)."""
+    n, caps = carry.pos.shape[0], stretch.caps
+    replayable = caps.can_regrow(stretch.where)
     thermo: List[Dict[str, float]] = []
-    stress_segs: List[np.ndarray] = []
-    escalations = build.escalations
-    overflow_checks = build.escalations + 1
-    overflow_worst = build.overflow
-    host_syncs = 1                      # initial build's overflow check
-    grid_rebuilds = 0
-    grid_key = stepper.grid_key_for(nspec, box_np)
-    ref_box_escal = box_np      # box the last volume fold was taken against
+    stress: List[np.ndarray] = []
     with obs.timed("driver.loop") as loop:
         step_base = 0
-        for seg_len in stepper.segment_schedule(spec.steps,
-                                                spec.rebuild_every):
+        for n_segs, seg_len in stepper.chunk_schedule(
+                steps, rebuild_every, stretch.chunk_segments):
             if step_base > 0:
-                # segment boundary: rebuild at the current positions and
-                # the current (carried) box; the overflow check +
-                # escalation retry lives inside. With no barostat the box
-                # never moves, so it is not fetched.
-                if baro is not None:
-                    box_now = carry.box.cpu().numpy().astype(float)
-                    host_syncs += 1
-                    key_now = stepper.grid_key_for(build.spec, box_now)
-                    if key_now != grid_key:
-                        grid_key = key_now
-                        grid_rebuilds += 1
-                else:
-                    box_now = box_np
-                build = stepper.build_neighbors_escalating(
-                    pot.layout_cfg(), build.spec, box_now, carry.pos, typ,
-                    spec.escalation,
-                    ref_box=ref_box_escal if baro is not None else None)
-                host_syncs += 1
-                overflow_checks += build.escalations + 1
-                overflow_worst = max(overflow_worst, build.overflow)
-                if build.escalations:
-                    escalations += build.escalations
-                    ref_box_escal = box_now
-                pot, grown = stepper.fit_section(pot, build.nlist, carry.pos,
-                                                 carry.box, policy)
-                escalations += grown
-                if build.escalations or grown:
-                    pot_run = pot.with_layout(build.spec.sel)
-                    eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
-            for attempt in range(policy.max_attempts + 1):
-                snap = stepper.snapshot(carry) if sectioned else None
-                with obs.span("driver.segment", steps=seg_len):
-                    carry, th = eng.run(carry, seg_len, params, build.nlist,
-                                        typ, masses, spec.dt_fs)
-                # ONE device->host sync per segment fetches the stacked
-                # thermo
-                with obs.span("driver.fetch"):
-                    th = stepper.fetch_thermo(th)
-                excess = stepper.section_excess(th)
-                if excess <= 0:
+                stretch.boundary(carry)
+            for attempt in range(caps.policy.max_attempts + 1):
+                snap = stepper.snapshot(carry) if replayable else None
+                out, host = stretch.run(carry, attempt, n_segs, seg_len)
+                if not caps.regrow(host, stretch.where):
+                    carry = out
                     break
-                if attempt == policy.max_attempts:
-                    raise RuntimeError(
-                        f"the model's section overflows after "
-                        f"{policy.max_attempts} segment replays "
-                        f"({pot.slots} slots)")
-                host_syncs += 1
-                pot = stepper.grow_section(pot, policy, excess, "segment")
-                escalations += 1
-                pot_run = pot.with_layout(build.spec.sel)
-                eng = stepper.md_segment_engine(pot_run, ens_obj, baro)
-                carry = stepper.restore(snap)
+                carry = stretch.restore(snap)
+            else:
+                raise caps.give_up(stretch.where)
             thermo.extend(stepper.thermo_rows(
-                th["pe"], th["ke"], step_base, spec.steps, spec.thermo_every,
-                n, press=th["press"], vol=th["vol"]))
-            stress_segs.append(th["stress"])
-            host_syncs += 1
-            step_base += seg_len
+                host["pe"].reshape(-1), host["ke"].reshape(-1), step_base,
+                steps, thermo_every, n, press=host["press"].reshape(-1),
+                vol=host["vol"].reshape(-1)))
+            stress.append(host["stress"].reshape(-1, 3, 3))
+            step_base += n_segs * seg_len
         _sync(dev)
     final_pos, final_vel, final_box = _to_host(carry.pos, carry.vel, carry.box)
-    return MDResult(thermo=thermo, final_pos=final_pos,
-                    final_vel=final_vel, wall_s=loop.seconds,
-                    steps=spec.steps, n_atoms=n, engine="scan",
-                    escalations=escalations, host_syncs=host_syncs,
-                    overflow_checks=overflow_checks,
-                    overflow_worst=overflow_worst,
-                    final_box=final_box,
-                    stress=(np.concatenate(stress_segs)
-                            if stress_segs else None),
-                    grid_rebuilds=grid_rebuilds, sel=tuple(build.spec.sel),
-                    section_slots=getattr(pot, "slots", 0))
+    engines = stretch.engines.values()
+    return MDResult(thermo=thermo, final_pos=final_pos, final_vel=final_vel,
+                    wall_s=loop.seconds, steps=steps, n_atoms=n,
+                    engine=stretch.engine, final_box=final_box,
+                    stress=np.concatenate(stress) if stress else None,
+                    graph_captures=sum(e.captures for e in engines),
+                    graph_replays=sum(e.replays for e in engines),
+                    capture_s=sum(e.capture_ns for e in engines) * 1e-9,
+                    **caps.counters())
 
 
 def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
@@ -285,121 +297,14 @@ def _run_md_outer(pot: api.Potential, ens_obj: api.Ensemble, params,
                   build: stepper.NeighborBuild, dev: torch.device, *, steps,
                   dt_fs, rebuild_every, thermo_every, chunk_segments,
                   escalation, barostat: Optional[api.Barostat] = None):
-    """Chunks of segments with the rebuild on the device.
-
-    The host touches the device once per chunk: the accumulated overflow
-    flag and the carried box ride in the same fetch as the chunk's stacked
-    thermo. On overflow the rebuilt list truncated inside the chunk, so the
-    whole chunk is REPLAYED from its entry snapshot with escalated
-    capacities (by the carried box's volume ratio too). A ``GRID_INVALID``
-    flag instead means a barostat moved the box past its static cell grid:
-    the replay re-derives the grid from the box. The snapshot holds the
-    ensemble's and barostat's generator states, so a replayed chunk draws
-    the same noise. A potential with a section of its own reports its excess
-    in the chunk's thermo: the chunk is replayed with the section grown.
-    """
-    policy = escalation or stepper.EscalationPolicy()
-    n = carry.pos.shape[0]
-    box_np = np.asarray(box_np, float)
-    grid_key = stepper.grid_key_for(build.spec, box_np)
-    ref_box_escal = box_np      # box the last volume fold was taken against
-    spec_n = build.spec
-    engines: Dict[Tuple[Any, ...], stepper.OuterEngine] = {}
-
-    thermo: List[Dict[str, float]] = []
-    stress_chunks: List[np.ndarray] = []
-    escalations = build.escalations
-    grid_rebuilds = 0
-    host_syncs = 1                      # initial build's overflow check
-    overflow_checks = build.escalations + 1
-    overflow_worst = build.overflow
-    with obs.timed("driver.loop") as loop:
-        step_base = 0
-        for n_segs, seg_len in stepper.chunk_schedule(steps, rebuild_every,
-                                                      chunk_segments):
-            for attempt in range(policy.max_attempts + 1):
-                with obs.span("outer.chunk", attempt=attempt, segments=n_segs):
-                    key = (spec_n, grid_key, pot)
-                    if key not in engines:
-                        engines[key] = stepper.md_outer_engine(
-                            pot.with_layout(spec_n.sel), ens_obj, spec_n,
-                            grid_key, barostat)
-                    snap = stepper.snapshot(carry)   # for a replay
-                    out, th = engines[key].run(carry, n_segs, seg_len,
-                                               params, typ, masses, dt_fs)
-                    # THE host sync of this chunk: thermo, flag and box
-                    th["overflow"] = out.overflow.reshape(1).expand(n_segs)
-                    th["box"] = out.box.reshape(1, 3).expand(n_segs, 3)
-                    with obs.span("outer.fetch"):
-                        host = stepper.fetch_thermo(th)
-                ovf = int(host["overflow"][0])
-                box_out = host["box"][0].astype(float)
-                host_syncs += 1
-                overflow_checks += 1
-                if ovf >= int(neighbors.GRID_INVALID):
-                    # geometry, not capacity: the carried box outgrew the
-                    # static cell grid mid-chunk. Re-derive from the
-                    # post-chunk box (coarser counts from a smaller box keep
-                    # every cell >= rcut for the chunk's larger early boxes
-                    # too); a box that dipped and recovered reproduces the
-                    # old key, so coarsen by one.
-                    key_new = stepper.grid_key_for(spec_n, box_out)
-                    if key_new == grid_key:
-                        key_new = tuple(max(1, k - 1) for k in grid_key)
-                    grid_key = key_new
-                    grid_rebuilds += 1
-                else:
-                    overflow_worst = max(overflow_worst, ovf)
-                    excess = stepper.section_excess(host)
-                    if ovf <= 0 and excess <= 0:
-                        carry = out
-                        break
-                    if ovf > 0:
-                        # fold the carried-box volume ratio into the growth,
-                        # then advance the reference box: a later retry
-                        # folds only ADDITIONAL shrink. The in-graph
-                        # rebuilds' flag is merged, so the cause is
-                        # unknown and both capacities grow.
-                        vol_scale = policy.volume_scale(ref_box_escal,
-                                                        box_out)
-                        ref_box_escal = box_out
-                        spec_n, _ = policy.escalate(spec_n, None, vol_scale)
-                        escalations += 1
-                    if excess > 0:
-                        pot = stepper.grow_section(pot, policy, excess,
-                                                   "chunk")
-                        escalations += 1
-                with obs.span("outer.restore"):
-                    carry = stepper.restore(snap)
-            else:
-                raise RuntimeError(
-                    f"neighbor capacity overflow persists after "
-                    f"{policy.max_attempts} chunk replays (last spec: "
-                    f"sel={spec_n.sel}, cell_capacity={spec_n.cell_capacity})")
-            # thermo for the whole chunk arrives stacked (n_segs, seg_len)
-            thermo.extend(stepper.thermo_rows(
-                host["pe"].reshape(-1), host["ke"].reshape(-1), step_base,
-                steps, thermo_every, n, press=host["press"].reshape(-1),
-                vol=host["vol"].reshape(-1)))
-            stress_chunks.append(host["stress"].reshape(-1, 3, 3))
-            step_base += n_segs * seg_len
-        _sync(dev)
-    final_pos, final_vel, final_box = _to_host(carry.pos, carry.vel, carry.box)
-    return MDResult(thermo=thermo, final_pos=final_pos,
-                    final_vel=final_vel, wall_s=loop.seconds,
-                    steps=steps, n_atoms=n, engine="outer",
-                    escalations=escalations, host_syncs=host_syncs,
-                    overflow_checks=overflow_checks,
-                    overflow_worst=overflow_worst,
-                    final_box=final_box,
-                    stress=(np.concatenate(stress_chunks)
-                            if stress_chunks else None),
-                    grid_rebuilds=grid_rebuilds, sel=tuple(spec_n.sel),
-                    graph_captures=sum(e.captures for e in engines.values()),
-                    graph_replays=sum(e.replays for e in engines.values()),
-                    capture_s=sum(e.capture_ns
-                                  for e in engines.values()) * 1e-9,
-                    section_slots=getattr(pot, "slots", 0))
+    """The outer engine's chunks after a host ``build`` its caller made,
+    ``carry`` holding its forces (regrow: ``stepper.Capacities``)."""
+    caps = stepper.Capacities(pot, build.spec, box_np, escalation)
+    caps.accept(build)
+    stretch = _OuterChunks(caps, ens_obj, barostat,
+                           (params, typ, masses, dt_fs), chunk_segments)
+    return _run_chunks(stretch, carry, dev, steps=steps,
+                       rebuild_every=rebuild_every, thermo_every=thermo_every)
 
 
 def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,

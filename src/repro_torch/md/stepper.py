@@ -5,18 +5,18 @@ The counterpart of ``repro.md.stepper``. Where the reference scans a jitted
 step over a ``rebuild_every``-step segment, :class:`SegmentEngine` runs the
 step in a Python loop under ``torch.no_grad()``; the per-step thermo stays
 on the device, stacked, and the host fetches it ONCE per segment
-(:func:`fetch_thermo`). Neighbor overflow is checked at segment boundaries
-with a capacity-escalation retry: the capacity that overflowed grows
-geometrically (by the carried box's volume ratio too, under a barostat)
-and the list is rebuilt from the same, still valid, positions. The
-descriptor normalization stays pinned to the model's native ``cfg.nsel``
-(``nsel_norm``), so escalated capacities change padding, never physics.
+(:func:`fetch_thermo`). The descriptor normalization stays pinned to the
+model's native ``cfg.nsel`` (``nsel_norm``), so escalated capacities change
+padding, never physics.
 
 :class:`OuterEngine` is the counterpart of the reference's jitted scan over
 segments: one segment is the neighbor rebuild at the carried positions and
 box followed by ``seg_len`` steps, with the overflow flag kept on the
 device. On the card each segment is captured once as a CUDA graph and
 replayed; on the CPU the same segment function runs eagerly.
+
+:class:`Capacities` holds a run's capacities and makes the one regrow
+decision after each fetched segment or chunk (``md/driver.py``).
 
 The box rides in the carry; a barostat rescales it after each step's
 thermostat, and the thermo streams the stress tensor, pressure and volume.
@@ -38,17 +38,8 @@ from repro_torch.md import api, integrator, neighbors
 
 
 def segment_schedule(steps: int, rebuild_every: int) -> List[int]:
-    """Split ``steps`` into segment lengths at neighbor-rebuild cadence.
-
-    Full ``rebuild_every``-length segments followed by one trailing partial
-    segment; the rebuild happens between entries.
-    """
-    if steps < 0 or rebuild_every <= 0:
-        raise ValueError(f"bad schedule: steps={steps} rebuild={rebuild_every}")
-    sched = [rebuild_every] * (steps // rebuild_every)
-    if steps % rebuild_every:
-        sched.append(steps % rebuild_every)
-    return sched
+    """Segment lengths at rebuild cadence: :func:`chunk_schedule`'s."""
+    return [n for _, n in chunk_schedule(steps, rebuild_every, 1)]
 
 
 def run_steps(step_fn: Callable, carry: Any, n_steps: int, *aux: Any):
@@ -247,55 +238,161 @@ def build_neighbors_escalating(
         f"cell_capacity={spec.cell_capacity})")
 
 
-# ------------------------------ a potential's own neighbour section
+# -------------------------------------------------- the run's capacities
 
-def section_excess(host_thermo: Dict[str, np.ndarray]) -> int:
-    """The most pairs that a potential's own section could not take over
-    the steps of fetched thermo (0 where the potential has no section)."""
-    x = host_thermo.get(api.MODEL_EXCESS)
-    return 0 if x is None else max(int(np.max(x)), 0)
+class Capacities:
+    """A single-process run's capacities, and the one rule that grows them:
+    the list's type sections and cell bins (``spec``), its cell grid
+    (``grid_key``, which a barostat's box can outgrow) and a potential's
+    own section (``potential.slots``, DPA-1's). It makes the host builds
+    and reads each stretch's fetched thermo (:meth:`regrow`: a scan
+    ``"segment"`` or an outer ``"chunk"``)."""
 
+    def __init__(self, potential: api.Potential,
+                 spec: neighbors.NeighborSpec, box: np.ndarray,
+                 policy: Optional[EscalationPolicy] = None,
+                 moving_box: bool = False):
+        self.potential, self.spec = potential, spec
+        self.policy = policy or EscalationPolicy()
+        self.box = np.asarray(box, float)
+        self.moving_box = moving_box    # a barostat moves the carried box
+        self.grid_key = grid_key_for(spec, self.box)
+        self.ref_box = self.box         # the box of the last volume fold
+        self.escalations = self.host_syncs = self.overflow_checks = 0
+        self.grid_rebuilds = 0
+        self.overflow_worst: Optional[int] = None
 
-def grow_section(potential: api.Potential, policy: EscalationPolicy,
-                 excess: int, where: str) -> api.Potential:
-    """``potential`` with its section grown by the policy until it holds
-    ``excess`` more pairs; one ``model.escalate`` span, its counters the
-    slots before and after, the excess and ``where`` it was found
-    (``build``, ``segment`` or ``chunk``)."""
-    slots = potential.slots
-    grown = policy.grow(slots)
-    while grown < slots + excess:
-        grown = policy.grow(grown)
-    with obs.span("model.escalate", where=where, excess=int(excess),
-                  slots=slots, grown=grown):
-        return potential.with_capacity(grown)
+    @property
+    def run_potential(self) -> api.Potential:
+        return self.potential.with_layout(self.spec.sel)
 
+    def can_regrow(self, where: str) -> bool:
+        """Whether a stretch can overflow (so needs a snapshot)."""
+        return where == "chunk" or hasattr(self.potential, "section_count")
 
-def fit_section(potential: api.Potential, nlist: torch.Tensor,
-                pos: torch.Tensor, box: torch.Tensor,
-                policy: Optional[EscalationPolicy] = None
-                ) -> Tuple[api.Potential, int]:
-    """At an accepted host build: a potential that compacts the list into
-    a section of its own (``section_count``, DPA-1's) counted at ``pos``,
-    its section grown until the pairs within its cut-off fit; returns the
-    potential and its escalations. Each count is a ``model.section`` span
-    with the counters ``atoms``, ``slots``, ``live`` (the pairs within the
-    cut-off) and ``excess``, fetched in one transfer. A potential without a
-    section comes back as it is."""
-    if not hasattr(potential, "section_count"):
-        return potential, 0
-    policy = policy or EscalationPolicy()
-    for grown in range(policy.max_attempts):
-        with obs.span("model.section", atoms=int(pos.shape[0]),
-                      slots=potential.slots) as sp:
-            live, excess = potential.section_count(pos, nlist, box).tolist()
-            sp.set(live=live, excess=excess)
-        if excess <= 0:
-            return potential, grown
-        potential = grow_section(potential, policy, excess, "build")
-    raise RuntimeError(f"the model's section overflows after "
-                       f"{policy.max_attempts} escalations ({potential.slots}"
-                       f" slots)")
+    def host_build(self, pos: torch.Tensor, typ: torch.Tensor,
+                   box: torch.Tensor) -> Tuple[torch.Tensor, api.Potential]:
+        """The list at ``pos`` and the carried ``box`` (escalated until it
+        fits) and the section fitted to it: the list and the potential at
+        its layout. Under a barostat a build after the first fetches the
+        box, re-derives the cell grid and folds the volume lost since the
+        last fold into its first escalation."""
+        first = self.overflow_worst is None
+        box_now = self.box
+        if self.moving_box and not first:
+            box_now = box.cpu().numpy().astype(float)
+            self.host_syncs += 1
+            key = grid_key_for(self.spec, box_now)
+            if key != self.grid_key:
+                self.grid_key = key
+                self.grid_rebuilds += 1
+        build = build_neighbors_escalating(
+            self.potential.layout_cfg(), self.spec, box_now, pos, typ,
+            self.policy, ref_box=self.ref_box)
+        if build.escalations:
+            self.ref_box = box_now
+        self.accept(build, self._fit_section(build.nlist, pos, box))
+        return build.nlist, self.run_potential
+
+    def accept(self, build: NeighborBuild, fitted: int = 0) -> None:
+        """Take an accepted host build's layout; count its attempts and the
+        section's ``fitted`` growths (flags inspected too, at the first)."""
+        first = self.overflow_worst is None
+        self.spec = build.spec
+        self.host_syncs += 1
+        self.overflow_checks += build.escalations + 1 + (fitted if first else 0)
+        self.escalations += build.escalations
+        self.overflow_worst = (build.overflow if first
+                               else max(self.overflow_worst, build.overflow))
+
+    def regrow(self, host: Dict[str, np.ndarray], where: str) -> bool:
+        """Grow what a stretch overflowed, from its fetched thermo; True
+        when it must run again from its snapshot.
+
+        An outer chunk's thermo holds its in-graph rebuilds' merged flag
+        and its box: ``GRID_INVALID`` re-derives the cell grid, any other
+        excess grows both list capacities (the cause is unknown), by the
+        volume lost since the last fold too. A section grows to hold the
+        most ``api.MODEL_EXCESS`` seen."""
+        self.host_syncs += 1
+        overflowed = False
+        if "overflow" in host:
+            ovf = int(host["overflow"][0])
+            box = host["box"][0].astype(float)
+            self.overflow_checks += 1
+            if ovf >= int(neighbors.GRID_INVALID):
+                # geometry, not capacity: the box outgrew the cell grid.
+                # Re-derive it from the post-chunk box (a smaller box's
+                # coarser counts keep cells >= rcut for the chunk's larger
+                # early boxes too); a box that dipped and recovered gives
+                # the old key back, so coarsen by one.
+                key = grid_key_for(self.spec, box)
+                if key == self.grid_key:
+                    key = tuple(max(1, k - 1) for k in self.grid_key)
+                self.grid_key = key
+                self.grid_rebuilds += 1
+                return True
+            self.overflow_worst = max(self.overflow_worst, ovf)
+            if ovf > 0:
+                # a later fold takes only the volume lost after this one
+                scale = self.policy.volume_scale(self.ref_box, box)
+                self.ref_box = box
+                self.spec, _ = self.policy.escalate(self.spec, None, scale)
+                self.escalations += 1
+                overflowed = True
+        excess = max(int(np.max(host.get(api.MODEL_EXCESS, 0))), 0)
+        if excess > 0:
+            self._grow_section(excess, where)
+        return overflowed or excess > 0
+
+    def give_up(self, where: str) -> RuntimeError:
+        n, spec = self.policy.max_attempts, self.spec
+        return RuntimeError(
+            f"the model's section overflows after {n} segment replays "
+            f"({self.potential.slots} slots)" if where == "segment" else
+            f"neighbor capacity overflow persists after {n} chunk replays "
+            f"(last spec: sel={spec.sel}, cell_capacity={spec.cell_capacity})")
+
+    def counters(self) -> Dict[str, Any]:
+        return dict(escalations=self.escalations, host_syncs=self.host_syncs,
+                    overflow_checks=self.overflow_checks,
+                    overflow_worst=self.overflow_worst,
+                    grid_rebuilds=self.grid_rebuilds, sel=tuple(self.spec.sel),
+                    section_slots=getattr(self.potential, "slots", 0))
+
+    def _grow_section(self, excess: int, where: str) -> None:
+        """Grow the section to hold ``excess`` more pairs, an escalation:
+        one ``model.escalate`` span, its counters the slots before and
+        after, the excess and ``where`` (``build``, ``segment``, ``chunk``)."""
+        slots = self.potential.slots
+        grown = self.policy.grow(slots)
+        while grown < slots + excess:
+            grown = self.policy.grow(grown)
+        with obs.span("model.escalate", where=where, excess=int(excess),
+                      slots=slots, grown=grown):
+            self.potential = self.potential.with_capacity(grown)
+        self.escalations += 1
+
+    def _fit_section(self, nlist: torch.Tensor, pos: torch.Tensor,
+                     box: torch.Tensor) -> int:
+        """Grow a potential's own section (``section_count``) until the
+        pairs of ``nlist`` within its cut-off fit; returns the growths.
+        Each count is a ``model.section`` span with the counters ``atoms``,
+        ``slots``, ``live`` and ``excess``, fetched in one transfer."""
+        if not hasattr(self.potential, "section_count"):
+            return 0
+        for grown in range(self.policy.max_attempts):
+            with obs.span("model.section", atoms=int(pos.shape[0]),
+                          slots=self.potential.slots) as sp:
+                live, excess = self.potential.section_count(
+                    pos, nlist, box).tolist()
+                sp.set(live=live, excess=excess)
+            if excess <= 0:
+                return grown
+            self._grow_section(excess, "build")
+        raise RuntimeError(f"the model's section overflows after "
+                           f"{self.policy.max_attempts} escalations "
+                           f"({self.potential.slots} slots)")
 
 
 # --------------------------------------------- single-process MD step
@@ -614,12 +711,9 @@ def md_outer_engine(potential: api.Potential, ensemble: api.Ensemble,
     Each segment rebuilds the neighbor list on the device at the
     segment-start positions AND box from the carry (the cell grid of
     ``grid_key`` cell counts, with cell sizes from the carried box) and then
-    runs ``seg_len`` MD steps against it. Capacity overflow cannot branch
-    inside a captured segment; it accumulates in the carry and
-    ``md/driver.py`` checks it once per chunk, replaying the chunk from a
-    snapshot with escalated capacities (``potential.sel`` == ``spec.sel``,
-    with the potential's pinned normalization) or, on ``GRID_INVALID``, a
-    grid re-derived from the box.
+    runs ``seg_len`` MD steps against it (``potential.sel`` ==
+    ``spec.sel``). Overflow cannot branch inside a captured segment: it
+    accumulates in the carry for :meth:`Capacities.regrow`.
     """
     nbr_fn = _dyn_cell_list_fn(spec, grid_key)
     md_step = make_md_step(potential, ensemble, barostat)

@@ -17,6 +17,7 @@ The file imports no JAX:
     python -m pytest --noconftest -q tests/test_torch_obs.py
 """
 
+import dataclasses
 import functools
 import sys
 import threading
@@ -29,8 +30,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import dp_model  # noqa: E402
-from repro_torch.core.types import DPConfig  # noqa: E402
-from repro_torch.md import api, lattice, neighbors, stepper  # noqa: E402
+from repro_torch.core.types import DPA1Config, DPConfig  # noqa: E402
+from repro_torch.md import (  # noqa: E402
+    api, driver, integrator, lattice, neighbors, stepper)
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -362,6 +364,147 @@ def test_results_are_the_same_with_the_recorder_disabled(engine,
     for k in ("host_syncs", "overflow_checks", "overflow_worst", "sel",
               "escalations", "graph_captures", "graph_replays"):
         assert getattr(a, k) == getattr(b, k), k
+
+
+# --------------------------------------------------------- the replay rule
+
+ONE_ATTEMPT = stepper.EscalationPolicy(max_attempts=1)
+# tests/test_torch_dpa1.py's narrow DPA-1 on water(1, 1, 1)
+DPA1_CFG = DPA1Config(ntypes=2, rcut=4.0, rcut_smth=0.5, sel=40,
+                      type_map=("O", "H"), embed_widths=(4, 8, 16),
+                      axis_neuron=4, tebd_dim=8, attn=16, attn_layer=2,
+                      fit_widths=(16, 16, 16))
+
+
+def _small_dp():
+    """A small DP copper model, its descriptor normalised by 48 slots."""
+    cfg = DPConfig(ntypes=1, rcut=4.0, rcut_smth=2.0, sel=(48,),
+                   type_map=("Cu",), embed_widths=(8, 16, 32), axis_neuron=4,
+                   fit_widths=(24, 24, 24))
+    return cfg, dp_model.init_dp_params(torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+
+
+def _water():
+    from mdbench.systems import water
+
+    pos, typ, box = water.water((1, 1, 1), 0)
+    return np.mod(pos, box).astype(np.float32), typ, box
+
+
+@pytest.mark.parametrize("cause", ["list", "section"])
+@pytest.mark.parametrize("engine", ["scan", "outer"])
+def test_a_run_gives_up_once_the_attempts_are_spent(engine, cause):
+    """With one attempt, a run that overflows at its first host build stops
+    there, its grown capacity untried: a list of 4 slots (the outer chunk
+    replay's set-up) after one build, a DPA-1 section of 8 slots (the
+    section escalation's, its list roomy) after one growth. Either engine
+    raises the host build's error, before its loop."""
+    if cause == "list":
+        cfg, params = _small_dp()
+        pot = api.make_potential("dp", cfg).with_layout((4,))
+        ensemble = api.NVTLangevin(temp_k=330.0, friction=0.1, seed=7)
+        (pos, typ, box), skin = lattice.fcc_copper(3, 3, 3), 0.5
+        error = "neighbor capacity overflow persists after 1 escalations"
+    else:
+        pot = api.DPA1Potential(DPA1_CFG, capacity=8, nbr_sel=(64, 128))
+        params = pot.init_params(torch.Generator().manual_seed(0), "cpu")
+        ensemble, (pos, typ, box), skin = api.NVE(), _water(), 2.0
+        error = "the model's section overflows after 1 escalations"
+    spec = api.SimulationSpec(pot, ensemble, steps=12, rebuild_every=4,
+                              thermo_every=1, skin=skin, engine=engine,
+                              escalation=ONE_ATTEMPT)
+    with pytest.raises(RuntimeError, match=error):
+        api.Simulation(spec).run(params, pos, typ, box, device="cpu")
+    (call,) = obs.calls(1)
+    names = [s.name for s in call.spans]
+    assert "driver.loop" not in names
+    if cause == "list":
+        assert names.count("nbr.build") == 1
+    else:
+        assert names.count("model.section") == 1
+        assert [s.attrs["where"] for s in call.spans
+                if s.name == "model.escalate"] == ["build"]
+
+
+def test_an_outer_chunk_gives_up_once_the_attempts_are_spent(monkeypatch):
+    """The outer chunk replay's set-up: a list built at 48 slots, the engine
+    told 4. The chunk's in-graph rebuilds overflow; it runs again at 8
+    slots, overflows again, and with one replay allowed the run stops,
+    each attempt restored from its own snapshot."""
+    cfg, params = _small_dp()
+    pot = api.make_potential("dp", cfg)
+    pos_np, typ_np, box_np = lattice.fcc_copper(3, 3, 3)
+    pos = torch.tensor(pos_np, dtype=torch.float32)
+    typ = torch.tensor(typ_np).long()
+    boxt = stepper.pack_box(box_np, torch.device("cpu"))
+    masses = torch.full((len(pos),), lattice.MASS["Cu"])
+    vel = torch.as_tensor(integrator.init_velocities(
+        torch.Generator().manual_seed(0), masses, 330.0))
+    ens = api.NVTLangevin(temp_k=330.0, friction=0.1, seed=7)
+    spec_ok = neighbors.NeighborSpec(rcut_nbr=cfg.rcut + 0.5, sel=cfg.sel)
+    build_ok = stepper.build_neighbors_escalating(cfg, spec_ok, box_np, pos,
+                                                  typ)
+    _, f0, _ = pot.energy_forces(params, pos, typ, build_ok.nlist, box=boxt)
+    small = stepper.NeighborBuild(
+        build_ok.nlist, dataclasses.replace(cfg, sel=(4,)),
+        dataclasses.replace(spec_ok, sel=(4,)), 0)
+    carry = stepper.OuterCarry(pos, vel, f0, torch.zeros((), dtype=torch.int32),
+                               ens.init_state("cpu"), boxt, ())
+    taken = []
+    snapshot = stepper.snapshot
+    monkeypatch.setattr(stepper, "snapshot",
+                        lambda c: taken.append(1) or snapshot(c))
+    with pytest.raises(RuntimeError, match="neighbor capacity overflow "
+                       r"persists after 1 chunk replays \(last spec: "
+                       r"sel=\(16,\)"):
+        driver._run_md_outer(pot, ens, params, carry, typ, box_np, masses,
+                             small, torch.device("cpu"), steps=40, dt_fs=1.0,
+                             rebuild_every=10, thermo_every=20,
+                             chunk_segments=8, escalation=ONE_ATTEMPT)
+    recs = obs.records()
+    assert [r.attrs["attempt"] for r in recs if r.name == "outer.chunk"] \
+        == [0, 1]
+    assert [r.name for r in recs].count("outer.restore") == len(taken) == 2
+
+
+@pytest.mark.parametrize("case", ["scan", "outer", "scan_section"])
+def test_a_snapshot_is_taken_only_where_a_replay_can_be(case, monkeypatch):
+    """A sectionless potential on the scan engine takes no snapshot; the
+    outer engine takes one an attempt (here a squeeze through a cell count
+    replays a chunk on a re-derived grid); a potential with a section of
+    its own takes one a scan segment's attempt."""
+    taken = []
+    snapshot = stepper.snapshot
+    monkeypatch.setattr(stepper, "snapshot",
+                        lambda c: taken.append(1) or snapshot(c))
+    if case == "scan_section":
+        pot = api.DPA1Potential(DPA1_CFG, nbr_sel=(64, 128))
+        params = pot.init_params(torch.Generator().manual_seed(0), "cpu")
+        spec = api.SimulationSpec(pot, api.NVE(), steps=8, rebuild_every=4,
+                                  thermo_every=1, skin=2.0, engine="scan")
+        (pos, typ, box) = _water()
+    else:
+        params, (pos, typ, box) = {}, lattice.fcc_copper(4, 4, 4)
+        spec = api.SimulationSpec(
+            api.LJPotential(sel=(64,), rcut_lj=4.0),
+            api.BerendsenThermostat(temp_k=50.0, tau_fs=50.0),
+            barostat=api.BerendsenBarostat(pressure_gpa=120.0, tau_fs=30.0,
+                                           compressibility_per_gpa=0.01),
+            steps=120, temp_k=50.0, skin=0.5, rebuild_every=5,
+            thermo_every=20, engine=case)
+    res = api.Simulation(spec).run(params, pos, typ, box, device="cpu")
+    (call,) = obs.calls(1)
+    attempts = [s.attrs["attempt"] for s in call.spans
+                if s.name == "outer.chunk"]
+    segments = [s for s in call.spans if s.name == "driver.segment"]
+    if case == "scan":
+        assert taken == [] and len(segments) == 24
+    elif case == "outer":
+        assert res.grid_rebuilds > 0 and max(attempts) >= 1
+        assert len(taken) == len(attempts)
+    else:
+        assert len(taken) == len(segments) == 2
 
 
 # -------------------------------------------------------------- on a card
