@@ -25,7 +25,10 @@ Phases; any failure exits non-zero before the result line:
      main path's escalated lists of 123,008 and 864 copper atoms and of
      155,520 water atoms, random dE/dr_ij): one line each with the kernel,
      the plain version (mask, index_add_, row sum, einsum), index_add_
-     alone and the byte bound.
+     alone and the byte bound. Then DPA-1's gated attention kernels
+     (``kernels/dp_fused/attention.py``) at dpa1.h2o.1card's shape (24,000
+     atoms x 120 slots x 128 features, ~70% of each row live): forward and
+     backward against the plain version, kernel and plain ms and the bound.
   3. the main path: ``Simulation.run`` of the paper's copper protocol (NVE,
      330 K, 99 steps, rebuild every 50 with a 2 A skin) on fcc_copper(20,20,20)
      = 32,000 atoms at full COPPER_DP width, impl="cheb_pallas", engine
@@ -480,6 +483,8 @@ def phase_kernels(cfg, wcfg, params, dev):
     del env_w, s_w
     torch.cuda.empty_cache()
     force_cases(cfg, wcfg, dev)
+    attention_case(dev)
+    torch.cuda.empty_cache()
     return main
 
 
@@ -540,6 +545,82 @@ def force_cases(cfg, wcfg, dev):
         pos = np.mod(pos + rng.normal(0.0, 0.05, pos.shape), box)
         force_case(label, c, pos, typ, box, dev, gen)
         torch.cuda.empty_cache()
+
+
+def attention_inputs(a, s, d, dev, gen):
+    """q, k, v, ww, gate, pad as ``dpa1.attention_layer`` gets them, and a
+    cotangent of O: each row's first n slots live, n drawn in [0.6 S,
+    0.8 S] (dpa1.h2o.1card reads 70.2% live), q, k, v L2-normalised, w in
+    (0, 1] and unit vectors on live slots, 0 on padded ones."""
+    from repro_torch.core import dpa1
+
+    n = torch.randint(int(0.6 * s), int(0.8 * s) + 1, (a, 1), generator=gen,
+                      device=dev)
+    live = torch.arange(s, device=dev) < n
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(
+            torch.randn(shape, generator=gen, device=dev), dim=-1)
+
+    q, k, v = unit(a, s, d) * d ** -0.5, unit(a, s, d), unit(a, s, d)
+    w = torch.where(live, 0.05 + 0.95 * torch.rand((a, s), generator=gen,
+                                                   device=dev), 0.0)
+    r = unit(a, s, 3) * live[..., None]
+    ww = w[:, :, None] * w[:, None, :]
+    gate = ww * torch.matmul(r, r.transpose(1, 2))
+    pad = torch.where(live, -dpa1.SHIFT, dpa1.MASKED - dpa1.SHIFT)[:, None]
+    dout = torch.randn((a, s, d), generator=gen, device=dev)
+    return (q, k, v, ww, gate, pad), dout, live
+
+
+def attention_case(dev):
+    """DPA-1's gated attention kernels (``kernels/dp_fused/attention.py``)
+    at dpa1.h2o.1card's shape, 24,000 atoms x 120 slots x 128 features:
+    forward and backward against the plain version (the same algorithm in
+    torch ops, float32), each timed against its bound (``attention.
+    kernel_cost``: live slots and pairs, outputs whole, at the H100's
+    peaks) beside the plain version. No one PyTorch call computes the gated
+    softmax, so there is no library time."""
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.core import dpa1
+    from repro_torch.kernels.dp_fused import attention
+
+    a, s, d = 24000, 120, 128
+    inputs, dout, live = attention_inputs(
+        a, s, d, dev, torch.Generator(device=dev).manual_seed(SEED))
+    n = live.sum(dim=1).double()
+    pairs, pairs_sq = float(n.sum()), float((n * n).sum())
+    log(f"[2] DPA-1 attention: A={a} S={s} D={d}: live slots {pairs:.0f} "
+        f"({pairs / (a * s):.1%}), live pairs {pairs_sq:.0f}")
+    out, lse = attention.gated_attention_fwd(*inputs, dpa1.SHIFT)
+    grads = attention.gated_attention_bwd(*inputs, dpa1.SHIFT, out, lse, dout)
+    out_r, lse_r = attention.gated_attention_fwd_ref(*inputs, dpa1.SHIFT)
+    grads_r = attention.gated_attention_bwd_ref(*inputs, dpa1.SHIFT, out_r,
+                                                lse_r, dout)
+    err_f = check_close("O", out, out_r, 1e-4, 2e-5)
+    err_b = max(check_close(name, g, w, 1e-4, 2e-5) for name, g, w in zip(
+        ("dq", "dk", "dv", "dww", "dgate"), grads, grads_r))
+    del out_r, lse_r, grads_r
+    t = {"dpa1_attention_fwd": (
+             lambda: attention.gated_attention_fwd(*inputs, dpa1.SHIFT),
+             lambda: attention.gated_attention_fwd_ref(*inputs, dpa1.SHIFT),
+             err_f),
+         "dpa1_attention_bwd": (
+             lambda: attention.gated_attention_bwd(*inputs, dpa1.SHIFT, out,
+                                                   lse, dout),
+             lambda: attention.gated_attention_bwd_ref(*inputs, dpa1.SHIFT,
+                                                       out, lse, dout),
+             err_b)}
+    cost = attention.kernel_cost(pairs, pairs_sq, a, s, d)
+    for name, (kernel, plain, err) in t.items():
+        ms, plain_ms = time_ms(kernel, 10), time_ms(plain, 3)
+        nbytes, ops = cost[name]
+        t_b, t_f = nbytes / HW_H100.hbm_bw * 1e3, ops / HW_H100.peak_flops * 1e3
+        bound = max(t_b, t_f)
+        log(f"  {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            f"library null | bound {bound:.4f} ms "
+            f"({'bytes' if t_b >= t_f else 'operations'}) | "
+            f"{bound / ms:.1%} of bound | max_abs_err {err:.3e}")
 
 
 # ------------------------------------------------------------------ phase 3

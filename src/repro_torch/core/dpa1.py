@@ -21,6 +21,14 @@ is gathered. The softmax over live slots only makes the energy independent
 of ``cap``; DeePMD-kit's smooth mode lets each padded slot add e^-20 to
 the denominator.
 
+Each attention layer's core, from q . k^T to the weights times v, is
+``kernels.dp_fused.attention.gated_attention``: on the card one forward and
+one backward kernel that keep the (A, S, S) logits, softmax and weights and
+their gradients out of device memory; on the CPU the same algorithm in plain
+torch. The in-projection, the L2 norms, the out-projection, the residual and
+LayerNorm stay torch ops (per-slot work and cuBLAS GEMMs), as do the gates
+w_j w_k and w_j w_k r^_j . r^_k, made once for both layers.
+
 The model's section is compacted every step from the MD engines' list
 (the pairs within rcut + skin, in type sections) by :func:`compact`, which
 reports the pairs that did not fit; forces and virial come from autograd
@@ -39,10 +47,13 @@ from repro_torch import obs
 from repro_torch.core import descriptor, dp_model, layers
 from repro_torch.core.types import DPA1Config
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dp_fused.attention import gated_attention
 
 #: the logits' shift: a slot at the cut-off (w = 0) reads -SHIFT
 SHIFT = 20.0
-#: added to the logits of padded keys, so that exp() of them is exactly 0
+#: added to the logits of padded keys, so that exp() of them is exactly 0;
+#: below the attention kernel's ``PADDED_AT``, which reads such a slot as
+#: padded
 MASKED = -1e4
 LN_EPS = 1e-5
 
@@ -168,16 +179,20 @@ def attention_gates(w: torch.Tensor, unit: torch.Tensor, nmask: torch.Tensor
 def attention_layer(lyr: Dict[str, Any], cfg: DPA1Config, g: torch.Tensor,
                     ww: torch.Tensor, gate: torch.Tensor, pad: torch.Tensor
                     ) -> torch.Tensor:
-    """One gated self-attention layer over the slots, with its residual and
-    LayerNorm."""
+    """One gated self-attention layer over the slots of G (A, S, M), with
+    its residual and LayerNorm.
+
+    The core, softmax((q . k^T + SHIFT) ww + pad) * gate times v, is
+    ``gated_attention``: the hand-written kernels on the card, their plain
+    version on the CPU; the q/k/v projection and norms, the out-projection,
+    the residual and LayerNorm are torch ops."""
     a = int(cfg.attn)
     q, k, v = layers.linear(lyr["in"], g).split(a, dim=-1)
     q = F.normalize(q, dim=-1) * a ** -0.5
     k = F.normalize(k, dim=-1)
     v = F.normalize(v, dim=-1)
-    logits = (torch.matmul(q, k.transpose(-1, -2)) + SHIFT) * ww + pad
-    weights = torch.softmax(logits, dim=-1) * gate
-    out = layers.linear(lyr["out"], torch.matmul(weights, v))
+    out = layers.linear(lyr["out"],
+                        gated_attention(q, k, v, ww, gate, pad, SHIFT))
     return F.layer_norm(g + out, (g.shape[-1],), lyr["ln"]["scale"],
                         lyr["ln"]["shift"], LN_EPS)
 
@@ -206,9 +221,9 @@ def fitting(net: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 def atomic_energy(params: Dict[str, Any], cfg: DPA1Config, rij: torch.Tensor,
                   nmask: torch.Tensor, atype: torch.Tensor,
                   nbr_type: torch.Tensor) -> torch.Tensor:
-    """E_i (..., A) of pair vectors ``rij`` (..., A, S, 3) in one mixed
-    section, ``nbr_type`` (..., A, S) the neighbours' types. The
-    normalization stays ``cfg.sel`` whatever S is."""
+    """E_i (A,) of pair vectors ``rij`` (A, S, 3) in one mixed section,
+    ``nbr_type`` (A, S) the neighbours' types. The normalization stays
+    ``cfg.sel`` whatever S is."""
     g, env_n, w, unit = embedding(params, cfg, rij, nmask, atype, nbr_type)
     ww, gate, pad = attention_gates(w, unit, nmask)
     g = attention(params, cfg, g, ww, gate, pad)

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them.
 
-The sources ``csrc/dp_fused.cu`` (the fused tabulation + contraction pair)
-and ``csrc/prod_force_virial.cu`` (the force-and-virial reduction) have a
-plain C interface, so they compile in seconds without PyTorch's headers,
+The sources ``csrc/dp_fused.cu`` (the fused tabulation + contraction pair),
+``csrc/prod_force_virial.cu`` (the force-and-virial reduction) and
+``csrc/dpa1_attention.cu`` (DPA-1's gated attention core) have a plain C
+interface, so they compile in seconds without PyTorch's headers,
 in one ``nvcc`` call into one shared library. It goes under
 ``build/dp_fused/`` at the repository root, named by a hash of the sources
 and the flags, and is loaded with ``ctypes``. Nothing is compiled or loaded
@@ -23,7 +24,8 @@ import time
 from pathlib import Path
 
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
-                for name in ("dp_fused.cu", "prod_force_virial.cu"))
+                for name in ("dp_fused.cu", "prod_force_virial.cu",
+                             "dpa1_attention.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "dp_fused"
 # -Xptxas -v makes nvcc report each kernel's registers, shared memory and
 # spills; the log is kept on the loaded library for the smoke run to print.
@@ -67,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.prod_force_virial.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                       ctypes.c_longlong, ctypes.c_longlong, p]
     lib.prod_force_virial.restype = i
+    lib.dpa1_attention_fwd.argtypes = [p] * 8 + [i, i, i, f, f, p]
+    lib.dpa1_attention_fwd.restype = i
+    lib.dpa1_attention_bwd.argtypes = [p] * 14 + [i, i, i, f, f, p]
+    lib.dpa1_attention_bwd.restype = i
     lib.dp_fused_error_string.argtypes = [i]
     lib.dp_fused_error_string.restype = ctypes.c_char_p
 

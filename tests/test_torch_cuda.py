@@ -363,6 +363,235 @@ def test_force_reduction_raises_instead_of_falling_back(dev):
     assert force.force_launches == n0
 
 
+# ----------------------------------------- DPA-1's gated attention core
+
+def _attn_inputs(seed, a, s, d, dev, kind="live_first"):
+    """q, k, v, ww, gate, pad as ``dpa1.attention_layer`` gets them, and a
+    cotangent of O: ~70% of the slots live, each row's first (its count
+    drawn in [0.6 S, 0.8 S], as ``dpa1.compact`` packs them; dpa1.h2o reads
+    70.2%) or scattered at random; w in (0, 1] and unit vectors on live
+    slots, 0 on padded ones."""
+    from repro_torch.core import dpa1
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "scattered":
+        live = torch.rand((a, s), generator=g, device=dev) < 0.7
+    else:
+        n = torch.randint(int(0.6 * s), int(0.8 * s) + 1, (a, 1),
+                          generator=g, device=dev)
+        live = torch.arange(s, device=dev) < n
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(
+            torch.randn(shape, generator=g, device=dev), dim=-1)
+
+    q, k, v = unit(a, s, d) * d ** -0.5, unit(a, s, d), unit(a, s, d)
+    w = torch.where(live, 0.05 + 0.95 * torch.rand((a, s), generator=g,
+                                                   device=dev), 0.0)
+    r = unit(a, s, 3) * live[..., None]
+    ww = w[:, :, None] * w[:, None, :]
+    gate = ww * torch.matmul(r, r.transpose(1, 2))
+    pad = torch.where(live, -dpa1.SHIFT, dpa1.MASKED - dpa1.SHIFT)[:, None]
+    dout = torch.randn((a, s, d), generator=g, device=dev)
+    return (q, k, v, ww, gate, pad), dout, live
+
+
+def _assert_attention_close(got, inputs, dout, live, chunk=2000):
+    """The kernels' O, lse, dq, dk, dv, dww, dgate against the plain
+    version in float64, chunk by chunk of atoms: each within 1e-4 of its
+    value plus 2e-5 of the chunk's largest (float32 sums of ~100 terms in
+    another order: O and lse 4e-7 of the largest on the card, the gradients
+    ~2e-6); zeros where a row or key is padded."""
+    from repro_torch.core import dpa1
+    from repro_torch.kernels.dp_fused import attention
+
+    names = ("O", "lse", "dq", "dk", "dv", "dww", "dgate")
+    for i in range(0, live.shape[0], chunk):
+        x = [t[i:i + chunk].double() for t in inputs]
+        o, lse = attention.gated_attention_fwd_ref(*x, dpa1.SHIFT)
+        want = (o, lse, *attention.gated_attention_bwd_ref(
+            *x, dpa1.SHIFT, o, lse, dout[i:i + chunk].double()))
+        for name, g, w in zip(names, got, want):
+            g = g[i:i + chunk].double()
+            tol = 1e-4 * w.abs() + 2e-5 * float(w.abs().max())
+            bad = (g - w).abs() > tol
+            assert not bool(bad.any()), (name, i, float(
+                ((g - w).abs() / tol).max()))
+    pairs = live[:, :, None] & live[:, None, :]
+    assert not got[0][~live].any() and not got[6][~pairs].any()
+    assert not got[3][~live].any() and not got[4][~live].any()
+
+
+# dpa1.h2o's shape (24,000 atoms, 120 slots, 128 features); a section
+# escalated past two 64-row blocks (S = 193, not a multiple of 4); a
+# scattered mask; the other feature widths; a section under one key tile
+_ATTN_CASES = {
+    "dpa1.h2o": (24000, 120, 128, "live_first"),
+    "s193": (500, 193, 128, "live_first"),
+    "scattered": (2000, 120, 128, "scattered"),
+    "d64": (300, 70, 64, "scattered"),
+    "d32": (300, 33, 32, "live_first"),
+    "s7": (64, 7, 128, "live_first"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_ATTN_CASES))
+def test_attention_kernels_match_plain_version(dev, case):
+    from repro_torch.core import dpa1
+    from repro_torch.kernels.dp_fused import attention
+
+    a, s, d, kind = _ATTN_CASES[case]
+    inputs, dout, live = _attn_inputs(len(case), a, s, d, dev, kind)
+    f0, b0 = attention.attn_fwd_launches, attention.attn_bwd_launches
+    out, lse = attention.gated_attention_fwd(*inputs, dpa1.SHIFT)
+    grads = attention.gated_attention_bwd(*inputs, dpa1.SHIFT, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (attention.attn_fwd_launches - f0,
+            attention.attn_bwd_launches - b0) == (1, 1)
+    _assert_attention_close((out, lse, *grads), inputs, dout, live)
+
+
+@pytest.mark.cuda
+def test_attention_counts_eager_captured_and_replayed_launches(dev):
+    """Through the autograd Function: an eager forward and backward launch
+    and count once each; under CUDA-graph capture they count as captured;
+    each replay adds what the graph recorded and gives the eager result."""
+    from repro_torch.core import dpa1
+    from repro_torch.kernels.dp_fused import attention
+
+    inputs, dout, _ = _attn_inputs(3, 400, 120, 128, dev)
+
+    def step():
+        # leaves made in the step, as the model's positions are
+        leaves = [t.detach().requires_grad_(True) for t in inputs[:5]]
+        out = attention.gated_attention(*leaves, inputs[5], dpa1.SHIFT)
+        return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+    f0, b0 = attention.attn_fwd_launches, attention.attn_bwd_launches
+    eager = step()
+    torch.cuda.synchronize()
+    assert (attention.attn_fwd_launches - f0,
+            attention.attn_bwd_launches - b0) == (1, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up, as capture requires
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    f1, c1, d1 = (attention.attn_fwd_launches, attention.attn_fwd_captured,
+                  attention.attn_bwd_captured)
+    with torch.cuda.graph(graph):
+        captured = step()
+    assert (attention.attn_fwd_captured - c1,
+            attention.attn_bwd_captured - d1) == (1, 1)
+    assert attention.attn_fwd_launches == f1
+    for _ in range(2):
+        graph.replay()
+        attention.count_replay(1, 1)
+    torch.cuda.synchronize()
+    assert attention.attn_fwd_launches - f1 == 2
+    for g, e in zip(captured, eager):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+def test_attention_raises_instead_of_falling_back(dev):
+    from repro_torch.core import dpa1
+    from repro_torch.kernels.dp_fused import attention
+
+    inputs, _, _ = _attn_inputs(5, 8, 40, 128, dev)
+    q, k, v, ww, gate, pad = inputs
+    strided = torch.empty((40, 8, 128), device=dev).transpose(0, 1)
+    narrow = [t[..., :48].contiguous() for t in (q, k, v)]
+    f0 = attention.attn_fwd_launches
+    for bad, err in [((q.double(), k.double(), v.double(), ww.double(),
+                       gate.double(), pad.double()), TypeError),
+                     ((*narrow, ww, gate, pad), ValueError),
+                     ((q, strided, v, ww, gate, pad), ValueError),
+                     ((q, k, v.cpu(), ww, gate, pad), ValueError)]:
+        with pytest.raises(err):
+            attention.gated_attention(*bad, dpa1.SHIFT)
+    assert attention.attn_fwd_launches == f0
+
+
+@pytest.mark.cuda
+def test_a_dpa1_evaluation_runs_the_attention_kernels(dev):
+    """One ``DPA1Potential.energy_forces`` call on the card adds exactly
+    ``attn_layer`` to each launch counter, and gives the CPU's energy,
+    forces and virial (the plain version there) to float32 reassociation."""
+    from repro_torch.core.types import DPA1Config
+    from repro_torch.kernels.dp_fused import attention
+    from repro_torch.md import api, lattice, neighbors
+    from repro_torch.train import tree
+
+    cfg = DPA1Config(ntypes=2, rcut=4.0, rcut_smth=0.5, sel=40,
+                     type_map=("O", "H"), embed_widths=(4, 8, 16),
+                     axis_neuron=4, tebd_dim=8, attn=32, attn_layer=2,
+                     fit_widths=(16, 16, 16))
+    pot = api.make_potential("dpa1", cfg)
+    params = pot.init_params(torch.Generator().manual_seed(0), device="cpu")
+    pos, typ, box = lattice.water_box(1, 1, 1, seed=0)
+    results = []
+    for d in ("cpu", dev):
+        x = torch.as_tensor(np.mod(pos, box), dtype=torch.float32, device=d)
+        t = torch.as_tensor(typ, dtype=torch.int64, device=d)
+        b = torch.as_tensor(box, dtype=torch.float32, device=d)
+        nlist, ovf = neighbors.brute_force_neighbors(
+            x, t, neighbors.NeighborSpec(cfg.rcut + 2.0, (64, 128)), b)
+        assert int(ovf) <= 0
+        p = tree.tree_map(lambda u: u.to(d), params)
+        f0, b0 = attention.attn_fwd_launches, attention.attn_bwd_launches
+        e, f, stats = pot.energy_forces(p, x, t, nlist, box=b)
+        if d != "cpu":
+            torch.cuda.synchronize()
+        launches = (attention.attn_fwd_launches - f0,
+                    attention.attn_bwd_launches - b0)
+        results.append((e.cpu(), f.cpu(), stats["virial"].cpu(), launches))
+    (e_c, f_c, w_c, n_c), (e_g, f_g, w_g, n_g) = results
+    assert n_c == (0, 0) and n_g == (cfg.attn_layer, cfg.attn_layer)
+    assert float(e_g) == pytest.approx(float(e_c), rel=1e-5)
+    torch.testing.assert_close(f_g, f_c, rtol=0,
+                               atol=1e-4 * float(f_c.abs().max()))
+    torch.testing.assert_close(w_g, w_c, rtol=0,
+                               atol=1e-4 * float(w_c.abs().max()))
+
+
+@pytest.mark.cuda
+def test_a_captured_dpa1_run_replays_the_attention_kernels(dev):
+    """DPA-1 on the outer engine: each segment is captured as a CUDA graph
+    with the attention kernels in it, and its replays give the scan
+    engine's thermo (float32 reassociation only); the replays add to the
+    launch counters."""
+    from repro_torch.core.types import DPA1Config
+    from repro_torch.kernels.dp_fused import attention
+    from repro_torch.md import api, lattice
+
+    cfg = DPA1Config(ntypes=2, rcut=4.0, rcut_smth=0.5, sel=40,
+                     type_map=("O", "H"), embed_widths=(4, 8, 16),
+                     axis_neuron=4, tebd_dim=8, attn=32, attn_layer=2,
+                     fit_widths=(16, 16, 16))
+    pot = api.make_potential("dpa1", cfg)
+    params = pot.init_params(torch.Generator().manual_seed(0), device=dev)
+    pos, typ, box = lattice.water_box(1, 1, 1, seed=0)
+    pos = np.mod(pos, box)
+    res, launches = {}, {}
+    for engine in ("scan", "outer"):
+        f0 = attention.attn_fwd_launches
+        res[engine] = api.Simulation(api.SimulationSpec(
+            potential=pot, ensemble="nve", steps=12, dt_fs=0.5,
+            rebuild_every=6, thermo_every=1, skin=2.0, seed=7,
+            engine=engine)).run(params, pos, typ, box, device=dev)
+        launches[engine] = attention.attn_fwd_launches - f0
+    assert res["outer"].graph_captures >= 1
+    assert launches["outer"] >= 12 * cfg.attn_layer
+    pe = {e: np.asarray([row["pe"] for row in r.thermo])
+          for e, r in res.items()}
+    np.testing.assert_allclose(pe["outer"], pe["scan"], rtol=1e-5)
+    np.testing.assert_allclose(res["outer"].final_pos, res["scan"].final_pos,
+                               rtol=0, atol=1e-4)
+
+
 # --------------------------------------------- the outer engine's graphs
 
 def _copper_engine(dev, ensemble=None):
