@@ -167,3 +167,77 @@ class DPA1Config:
 
 # DeePMD-kit's examples/water/se_atten (se_atten_v2) at its published widths.
 WATER_DPA1 = DPA1Config()
+
+
+@dataclasses.dataclass(frozen=True)
+class DPA2Config:
+    """DPA-2 (Zhang et al., arXiv:2312.15492) as DeePMD-kit's ``dpa2``
+    descriptor writes it: a *repinit* block (DPA-1's embedding in
+    ``concat`` mode, no attention) over one mixed section within ``rcut``,
+    then ``repformer_layers`` *repformer* layers over a second mixed
+    section within ``repformer_rcut``, with one fitting net on
+    [g1, tebd(t_i)].
+
+    Two model sections, each with its own cut-offs and ``sel`` (also its
+    normalization): ``sel`` slots within ``rcut`` (repinit) and
+    ``repformer_sel`` within ``repformer_rcut``, taken from the first. The
+    MD engines' list holds the pairs within rcut + skin in type sections,
+    as for DPA-1.
+    """
+
+    ntypes: int = 2
+    type_map: Tuple[str, ...] = ("O", "H")
+    tebd_dim: int = 8
+    rcut: float = 6.0                 # repinit's section
+    rcut_smth: float = 0.5
+    sel: int = 120
+    repinit_widths: Tuple[int, ...] = (25, 50, 100)
+    repinit_axis: int = 12
+    repformer_rcut: float = 4.0       # the repformers' section
+    repformer_rcut_smth: float = 3.5
+    repformer_sel: int = 40
+    repformer_layers: int = 6
+    g1_dim: int = 128
+    g2_dim: int = 32
+    attn2_hidden: int = 32            # each head's q/k width
+    attn2_heads: int = 4
+    repformer_axis: int = 4           # the columns of grrg and drrd
+    fit_widths: Tuple[int, ...] = (240, 240, 240)
+    dtype: str = "float32"
+
+    #: the model's sections, outer first
+    SECTIONS = ("repinit", "repformer")
+
+    @property
+    def sections(self) -> Tuple[int, int]:
+        return (int(self.sel), int(self.repformer_sel))
+
+    @property
+    def repinit_dim(self) -> int:
+        return self.repinit_axis * int(self.repinit_widths[-1])
+
+    @property
+    def g1_mlp_dim(self) -> int:
+        """grrg and drrd side by side."""
+        return self.repformer_axis * (self.g2_dim + self.g1_dim)
+
+    def validate(self) -> None:
+        if len(self.type_map) != self.ntypes:
+            raise ValueError("type_map must name every type")
+        for a, b in zip(self.repinit_widths[:-1], self.repinit_widths[1:]):
+            if b not in (a, 2 * a):
+                raise ValueError("repinit widths must double or repeat")
+        if self.repinit_axis > self.repinit_widths[-1]:
+            raise ValueError("repinit_axis must not exceed its width")
+        if self.repformer_axis > min(self.g1_dim, self.g2_dim):
+            raise ValueError("repformer_axis must not exceed g1 and g2")
+        if not 0 < self.repformer_rcut <= self.rcut:
+            raise ValueError("the repformers' cut-off lies within rcut")
+        if self.sel < 1 or self.repformer_sel < 1 \
+                or self.repformer_layers < 0:
+            raise ValueError("need sel, repformer_sel >= 1 and "
+                             "repformer_layers >= 0")
+
+
+# DeePMD-kit's examples/water/dpa2 at its published widths.
+WATER_DPA2 = DPA2Config()

@@ -37,8 +37,8 @@ from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 import torch
 
 from repro_torch import obs
-from repro_torch.core import dp_model, dpa1
-from repro_torch.core.types import DPA1Config, DPConfig
+from repro_torch.core import dp_model, dpa1, dpa2
+from repro_torch.core.types import DPA1Config, DPA2Config, DPConfig
 from repro_torch.device import DeviceLike
 from repro_torch.md import integrator
 
@@ -251,14 +251,17 @@ class DPA1Potential:
     (``sel``, escalated by the engines like any list); each evaluation
     compacts the pairs within rcut into the model's section of ``slots``
     slots and reports the pairs that did not fit as ``stats["model_excess"]``
-    (> 0: the engines grow ``slots`` with :meth:`with_capacity` and run the
-    stretch again, ``md/stepper.Capacities``). The
-    normalization stays ``cfg.sel`` whatever ``slots`` is.
+    (> 0: the engines grow ``slots`` with :meth:`with_capacities` and run
+    the stretch again, ``md/stepper.Capacities``). The normalization stays
+    ``cfg.sel`` whatever ``slots`` is.
     """
 
     cfg: DPA1Config
     capacity: Optional[int] = None          # the model's slots; cfg.sel
     nbr_sel: Optional[Tuple[int, ...]] = None   # the list's; cfg.sel each
+
+    #: the model's one section (``stepper.Capacities`` names it in spans)
+    section_names = ("rcut",)
 
     @property
     def sel(self) -> Tuple[int, ...]:
@@ -267,6 +270,10 @@ class DPA1Potential:
     @property
     def slots(self) -> int:
         return int(self.capacity or self.cfg.sel)
+
+    @property
+    def capacities(self) -> Tuple[int, ...]:
+        return (self.slots,)
 
     @property
     def rcut(self) -> float:
@@ -289,6 +296,10 @@ class DPA1Potential:
 
     def with_capacity(self, slots: int) -> "DPA1Potential":
         return dataclasses.replace(self, capacity=int(slots))
+
+    def with_capacities(self, slots: Tuple[int, ...]) -> "DPA1Potential":
+        (one,) = slots
+        return self.with_capacity(one)
 
     def init_params(self, gen: torch.Generator, device: DeviceLike = "cuda"):
         return dpa1.init_params(gen, self.cfg, device=device)
@@ -315,6 +326,90 @@ class DPA1Potential:
                              "on one process")
         return dpa1.atomic_energy(params, self.cfg, rij, nmask, typ,
                                   nbr_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPA2Potential:
+    """DPA-2 (``core/dpa2.py``): repinit over one mixed section within
+    rcut, repformer layers over a second within ``repformer_rcut``, which
+    gather their neighbours' g1 (message passing).
+
+    The engines' list holds the pairs within rcut + skin in type sections
+    (``sel``, escalated by the engines like any list); each evaluation
+    compacts both sections from it and reports each one's excess in
+    ``stats["model_excess"]`` (2,): the engines grow only the section that
+    overflowed (:meth:`with_capacities`, ``md/stepper.Capacities``) and run
+    the stretch again. The normalizations stay ``cfg.sel`` and
+    ``cfg.repformer_sel`` whatever the capacities are. One process only:
+    across processes each layer would need its halo's g1.
+    """
+
+    cfg: DPA2Config
+    capacity: Optional[Tuple[int, int]] = None   # slots; cfg.sections
+    nbr_sel: Optional[Tuple[int, ...]] = None    # the list's; cfg.sel each
+
+    section_names = DPA2Config.SECTIONS
+
+    @property
+    def sel(self) -> Tuple[int, ...]:
+        return tuple(self.nbr_sel or (self.cfg.sel,) * self.cfg.ntypes)
+
+    @property
+    def slots(self) -> Tuple[int, int]:
+        return tuple(int(c) for c in (self.capacity or self.cfg.sections))
+
+    capacities = slots
+
+    @property
+    def rcut(self) -> float:
+        return float(self.cfg.rcut)
+
+    @property
+    def type_map(self) -> Tuple[str, ...]:
+        return tuple(self.cfg.type_map)
+
+    def layout_cfg(self) -> DPConfig:
+        """A layout-only DPConfig (the list's type sections and rcut) for
+        the neighbour machinery."""
+        return DPConfig(ntypes=self.cfg.ntypes, rcut=self.cfg.rcut,
+                        rcut_smth=self.cfg.rcut_smth, sel=self.sel,
+                        type_map=self.type_map)
+
+    def with_layout(self, sel, nsel_norm=None):
+        del nsel_norm            # pinned to the config's, whatever the layout
+        return dataclasses.replace(self, nbr_sel=tuple(sel))
+
+    def with_capacities(self, slots: Tuple[int, int]) -> "DPA2Potential":
+        return dataclasses.replace(self,
+                                   capacity=tuple(int(c) for c in slots))
+
+    def init_params(self, gen: torch.Generator, device: DeviceLike = "cuda"):
+        return dpa2.init_params(gen, self.cfg, device=device)
+
+    def section_count(self, pos, nlist, box=None) -> torch.Tensor:
+        """(2, 2) int64 on the device: for each section its pairs of
+        ``nlist`` within its cut-off and its excess over its slots."""
+        _, _, excess, live = dpa2.compact(pos, nlist, box, self.cfg,
+                                          self.slots)
+        return torch.stack([live, excess.to(torch.int64)], dim=1)
+
+    def energy_forces(self, params, pos, typ, nlist, nmask=None, box=None):
+        with obs.span("dpa2.force", atoms=int(pos.shape[0]),
+                      slots=self.slots):
+            e, f, virial, excess = dpa2.energy_forces(
+                params, self.cfg, pos, nlist, typ, box, caps=self.slots)
+        return e, f, {"virial": virial, MODEL_EXCESS: excess}
+
+    def atomic_energy(self, params, rij, nmask, typ, comm=None, mixed=None,
+                      sub=None):
+        """Per-atom energies of the first section's pair vectors ``rij``,
+        ``mixed`` its atom indices and ``sub`` the second section's slots
+        (``dpa2.compact``); one process only."""
+        if comm is not None or mixed is None or sub is None:
+            raise ValueError("DPA-2 needs both sections' indices and runs "
+                             "on one process")
+        return dpa2.atomic_energy(params, self.cfg, rij, nmask, typ, mixed,
+                                  sub)
 
 
 # =============================================================== Ensemble
@@ -581,15 +676,17 @@ def make_potential(name: str, cfg: Optional[DPConfig] = None,
     tabulated rung gets the adapter that owns its tables);
     "quintic"/"cheb" are tabulated DP; "lj" takes :class:`LJPotential`
     keyword overrides and needs no DP config at all; "dpa1" takes a
-    :class:`DPA1Config`.
+    :class:`DPA1Config`, "dpa2" a :class:`DPA2Config`.
     """
     if name == "lj":
         return LJPotential(**lj_kw)
-    if name == "dpa1":
-        if not isinstance(cfg, DPA1Config):
-            raise ValueError("potential 'dpa1' needs a DPA1Config")
-        cfg.validate()
-        return DPA1Potential(cfg)
+    for own, kind, cls in (("dpa1", DPA1Config, DPA1Potential),
+                           ("dpa2", DPA2Config, DPA2Potential)):
+        if name == own:
+            if not isinstance(cfg, kind):
+                raise ValueError(f"potential {own!r} needs a {kind.__name__}")
+            cfg.validate()
+            return cls(cfg)
     if cfg is None:
         raise ValueError(f"potential {name!r} needs a DPConfig")
     if name == "dp":

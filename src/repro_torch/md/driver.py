@@ -37,7 +37,7 @@ duration.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,8 +68,9 @@ class MDResult:
     graph_captures: int = 0       # outer engine on the card: CUDA graphs
     graph_replays: int = 0        # captured, and replays of them
     capture_s: float = 0.0        # part of wall_s spent warming up + capturing
-    section_slots: int = 0        # a potential's own section at the end (0:
-    #                               none), escalations of it in escalations
+    # a potential's own section at the end (a tuple for several; 0: none),
+    # escalations of it in escalations
+    section_slots: Union[int, Tuple[int, ...]] = 0
 
     @property
     def us_per_step_atom(self) -> float:
@@ -337,8 +338,8 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
     stress_steps = []
     # a potential's own section is checked with the lists' flags, after
     # the run (this loop has no replay)
-    ovf_flags = [stats[api.MODEL_EXCESS]] if api.MODEL_EXCESS in stats \
-        else []
+    ovf_flags = [stats[api.MODEL_EXCESS].max()] \
+        if api.MODEL_EXCESS in stats else []
     grid_rebuilds = 0
     with obs.timed("driver.loop") as loop, torch.no_grad():
         for step in range(steps):
@@ -360,7 +361,7 @@ def _run_md_python(pot: api.Potential, ens_obj: api.Ensemble, params, pos,
             e, f_new, stats = pot.energy_forces(params, pos, typ, nlist,
                                                 box=boxt)
             if api.MODEL_EXCESS in stats:
-                ovf_flags.append(stats[api.MODEL_EXCESS])
+                ovf_flags.append(stats[api.MODEL_EXCESS].max())
             vel = ens_obj.half_kick(vel, f_new, masses, dt_fs)
             vel, ens = ens_obj.finalize(vel, masses, dt_fs, ens)
             f = f_new

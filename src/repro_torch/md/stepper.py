@@ -245,7 +245,8 @@ class Capacities:
     """A single-process run's capacities, and the one rule that grows them:
     the list's type sections and cell bins (``spec``), its cell grid
     (``grid_key``, which a barostat's box can outgrow) and a potential's
-    own section (``potential.slots``, DPA-1's). It makes the host builds
+    own sections (``potential.capacities``, named by its
+    ``section_names``: DPA-1's one, DPA-2's two). It makes the host builds
     and reads each stretch's fetched thermo (:meth:`regrow`: a scan
     ``"segment"`` or an outer ``"chunk"``)."""
 
@@ -313,8 +314,9 @@ class Capacities:
         An outer chunk's thermo holds its in-graph rebuilds' merged flag
         and its box: ``GRID_INVALID`` re-derives the cell grid, any other
         excess grows both list capacities (the cause is unknown), by the
-        volume lost since the last fold too. A section grows to hold the
-        most ``api.MODEL_EXCESS`` seen."""
+        volume lost since the last fold too. Each of a potential's
+        sections that overflowed grows to hold the most of its
+        ``api.MODEL_EXCESS`` seen; the others keep their slots."""
         self.host_syncs += 1
         overflowed = False
         if "overflow" in host:
@@ -341,10 +343,12 @@ class Capacities:
                 self.spec, _ = self.policy.escalate(self.spec, None, scale)
                 self.escalations += 1
                 overflowed = True
-        excess = max(int(np.max(host.get(api.MODEL_EXCESS, 0))), 0)
-        if excess > 0:
-            self._grow_section(excess, where)
-        return overflowed or excess > 0
+        grew = False
+        if api.MODEL_EXCESS in host:
+            excess = np.asarray(host[api.MODEL_EXCESS]).reshape(
+                -1, len(self.potential.capacities)).max(axis=0)
+            grew = self._grow_sections([int(x) for x in excess], where)
+        return overflowed or grew
 
     def give_up(self, where: str) -> RuntimeError:
         n, spec = self.policy.max_attempts, self.spec
@@ -361,36 +365,47 @@ class Capacities:
                     grid_rebuilds=self.grid_rebuilds, sel=tuple(self.spec.sel),
                     section_slots=getattr(self.potential, "slots", 0))
 
-    def _grow_section(self, excess: int, where: str) -> None:
-        """Grow the section to hold ``excess`` more pairs, an escalation:
-        one ``model.escalate`` span, its counters the slots before and
-        after, the excess and ``where`` (``build``, ``segment``, ``chunk``)."""
-        slots = self.potential.slots
-        grown = self.policy.grow(slots)
-        while grown < slots + excess:
-            grown = self.policy.grow(grown)
-        with obs.span("model.escalate", where=where, excess=int(excess),
-                      slots=slots, grown=grown):
-            self.potential = self.potential.with_capacity(grown)
-        self.escalations += 1
+    def _grow_sections(self, excess: List[int], where: str) -> bool:
+        """Grow each section whose ``excess`` (one a section) is > 0 to
+        hold that many more pairs, and no other: an escalation each, one
+        ``model.escalate`` span each, its counters the ``section``, the
+        slots before and after, the excess and ``where`` (``build``,
+        ``segment``, ``chunk``). True when one grew."""
+        slots = list(self.potential.capacities)
+        names = self.potential.section_names
+        for i, more in enumerate(excess):
+            if more <= 0:
+                continue
+            grown = self.policy.grow(slots[i])
+            while grown < slots[i] + more:
+                grown = self.policy.grow(grown)
+            with obs.span("model.escalate", section=names[i], where=where,
+                          excess=int(more), slots=slots[i], grown=grown):
+                slots[i] = grown
+                self.potential = self.potential.with_capacities(tuple(slots))
+            self.escalations += 1
+        return max(excess, default=0) > 0
 
     def _fit_section(self, nlist: torch.Tensor, pos: torch.Tensor,
                      box: torch.Tensor) -> int:
-        """Grow a potential's own section (``section_count``) until the
-        pairs of ``nlist`` within its cut-off fit; returns the growths.
-        Each count is a ``model.section`` span with the counters ``atoms``,
-        ``slots``, ``live`` and ``excess``, fetched in one transfer."""
+        """Grow a potential's own sections (``section_count``) until the
+        pairs of ``nlist`` within their cut-offs fit; returns the growths.
+        Each count, fetched in one transfer for every section, gives one
+        ``model.section`` span a section with the counters ``section``,
+        ``atoms``, ``slots``, ``live`` and ``excess``."""
         if not hasattr(self.potential, "section_count"):
             return 0
         for grown in range(self.policy.max_attempts):
-            with obs.span("model.section", atoms=int(pos.shape[0]),
-                          slots=self.potential.slots) as sp:
-                live, excess = self.potential.section_count(
-                    pos, nlist, box).tolist()
-                sp.set(live=live, excess=excess)
-            if excess <= 0:
+            pot = self.potential
+            counts = pot.section_count(pos, nlist, box).reshape(-1, 2)
+            counts = counts.tolist()
+            for name, slots, (live, excess) in zip(
+                    pot.section_names, pot.capacities, counts):
+                with obs.span("model.section", section=name,
+                              atoms=int(pos.shape[0]), slots=slots) as sp:
+                    sp.set(live=live, excess=excess)
+            if not self._grow_sections([ex for _, ex in counts], "build"):
                 return grown
-            self._grow_section(excess, "build")
         raise RuntimeError(f"the model's section overflows after "
                            f"{self.policy.max_attempts} escalations "
                            f"({self.potential.slots} slots)")

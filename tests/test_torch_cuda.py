@@ -592,6 +592,91 @@ def test_a_captured_dpa1_run_replays_the_attention_kernels(dev):
                                rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_a_dpa2_evaluation_matches_the_reference(dev):
+    """One ``DPA2Potential.energy_forces`` call on the card at the
+    published widths (``WATER_DPA2``: 120 and 40 slots, six layers), on
+    ``water_box(2, 1, 1)`` (384 atoms), against the benchmark's plain
+    reference (``mdbench/reference/dpa2.py``, plain torch) on the card,
+    both in float32 with TF32 off: energies to 1e-6 relative, forces to
+    1e-5 of the largest (float32 reassociation over six layers; the
+    reference in TF32 reads ~1e-3 off)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core.types import WATER_DPA2
+    from repro_torch.md import api, lattice, neighbors
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from mdbench import manifest
+    from mdbench.reference import dpa2 as ref
+    from mdbench.reference.shared import neighbor_table
+
+    raw = manifest.load("dpa2.h2o.1card").config
+    assert manifest.config_for(type(WATER_DPA2), raw) == WATER_DPA2
+    weights = ref.weights(raw, 0, dev)
+    pos, typ, box = lattice.water_box(2, 1, 1, seed=0)
+    x = torch.as_tensor(np.mod(pos, box), dtype=torch.float32, device=dev)
+    t = torch.as_tensor(typ, dtype=torch.int64, device=dev)
+    b = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    nlist, ovf = neighbors.brute_force_neighbors(
+        x, t, neighbors.NeighborSpec(WATER_DPA2.rcut + 0.2, (96, 192)), b)
+    assert int(ovf) <= 0
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pot = api.make_potential("dpa2", WATER_DPA2)
+        e, f, stats = pot.energy_forces(weights, x, t, nlist, box=b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert (stats["model_excess"] <= 0).all()
+    want = ref.Reference(raw, weights, dev)
+    table = neighbor_table(x, b, WATER_DPA2.rcut)
+    e_ref, f_ref = want.energy_forces(x, t, b, table)
+    assert float(e) == pytest.approx(e_ref, rel=1e-6)
+    scale = float(f_ref.abs().max())
+    assert float((f - f_ref).abs().max()) < 1e-5 * scale
+    e_low, f_low = ref.Reference(raw, weights, dev,
+                                 precision="tf32").energy_forces(x, t, b,
+                                                                  table)
+    assert float((f_low - f_ref).abs().max()) > 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_a_captured_dpa2_run_matches_the_scan_engine(dev):
+    """DPA-2 on the outer engine: each segment, both compactions and the
+    gather of the neighbours' g1 and its scatter-add included, is captured
+    as a CUDA graph, and its replays give the scan engine's thermo (float32
+    reassociation only)."""
+    from repro_torch.core.types import DPA2Config
+    from repro_torch.md import api, lattice
+
+    cfg = DPA2Config(rcut=4.0, sel=40, repinit_widths=(4, 8, 16),
+                     repinit_axis=4, repformer_rcut=3.0,
+                     repformer_rcut_smth=2.0, repformer_sel=20, g1_dim=16,
+                     g2_dim=8, attn2_hidden=8, fit_widths=(16, 16, 16))
+    pot = api.make_potential("dpa2", cfg)
+    params = pot.init_params(torch.Generator().manual_seed(0), device=dev)
+    for lyr in params["repformers"]:
+        lyr["g1_res"].fill_(1.0)
+        lyr["g2_res"].fill_(1.0)
+    pos, typ, box = lattice.water_box(1, 1, 1, seed=0)
+    pos = np.mod(pos, box)
+    res = {}
+    for engine in ("scan", "outer"):
+        res[engine] = api.Simulation(api.SimulationSpec(
+            potential=pot, ensemble="nve", steps=12, dt_fs=0.5,
+            rebuild_every=6, thermo_every=1, skin=2.0, seed=7,
+            engine=engine)).run(params, pos, typ, box, device=dev)
+    assert res["outer"].graph_captures >= 1
+    assert res["outer"].section_slots == cfg.sections
+    pe = {e: np.asarray([row["pe"] for row in r.thermo])
+          for e, r in res.items()}
+    np.testing.assert_allclose(pe["outer"], pe["scan"], rtol=1e-5)
+    np.testing.assert_allclose(res["outer"].final_pos, res["scan"].final_pos,
+                               rtol=0, atol=1e-4)
+
+
 # --------------------------------------------- the outer engine's graphs
 
 def _copper_engine(dev, ensemble=None):
