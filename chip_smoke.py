@@ -29,6 +29,10 @@ Phases; any failure exits non-zero before the result line:
      (``kernels/dp_fused/attention.py``) at dpa1.h2o.1card's shape (24,000
      atoms x 120 slots x 128 features, ~70% of each row live): forward and
      backward against the plain version, kernel and plain ms and the bound.
+     Then the se_e2_a environment matrix pair (``kernels/dp_fused/env.py``)
+     at cu.weak.1card's shape (123,008 atoms x 512 slots, 368 filled a
+     row): forward and backward against the plain version (the descriptor's
+     ops and their autograd), kernel and plain ms and the byte bound.
   3. the main path: ``Simulation.run`` of the paper's copper protocol (NVE,
      330 K, 99 steps, rebuild every 50 with a 2 A skin) on fcc_copper(20,20,20)
      = 32,000 atoms at full COPPER_DP width, impl="cheb_pallas", engine
@@ -485,6 +489,8 @@ def phase_kernels(cfg, wcfg, params, dev):
     force_cases(cfg, wcfg, dev)
     attention_case(dev)
     torch.cuda.empty_cache()
+    env_mat_case(cfg, dev)
+    torch.cuda.empty_cache()
     return main
 
 
@@ -620,6 +626,74 @@ def attention_case(dev):
         log(f"  {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
             f"library null | bound {bound:.4f} ms "
             f"({'bytes' if t_b >= t_f else 'operations'}) | "
+            f"{bound / ms:.1%} of bound | max_abs_err {err:.3e}")
+
+
+def env_mat_rows(a, n, live, rcut_nbr, dev, gen):
+    """rij, nmask, atype and dstd of (A, N) rows with ``live`` neighbours a
+    row packed at its front, r uniform in volume from 2.3 A to ``rcut_nbr``
+    (copper's nearest neighbour is 2.56 A), padded slots 0."""
+    u = torch.rand((a, n), generator=gen, device=dev)
+    r = (2.3 ** 3 + u * (rcut_nbr ** 3 - 2.3 ** 3)) ** (1.0 / 3.0)
+    unit = torch.nn.functional.normalize(
+        torch.randn((a, n, 3), generator=gen, device=dev), dim=-1)
+    nmask = (torch.arange(n, device=dev) < live).expand(a, n).contiguous()
+    rij = torch.where(nmask[..., None], unit * r[..., None], 0.0)
+    atype = torch.zeros(a, dtype=torch.int64, device=dev)
+    dstd = 0.2 + torch.rand((1, 4), generator=gen, device=dev)
+    return rij, nmask, atype, dstd
+
+
+def env_mat_case(cfg, dev):
+    """The environment matrix pair (``kernels/dp_fused/env.py``) at
+    cu.weak.1card's shape: 123,008 atoms x 512 slots, 368 live a row (the
+    FCC shells within rcut + skin = 10 A, ``nbr.fill_share`` 71.875%).
+    Forward and backward against the plain version (descriptor.env_matrix +
+    normalize_env and their autograd, float32), each timed against its
+    bound (``env.kernel_bytes``: mask and outputs on every slot, r_ij and
+    the gradients on filled slots, at 3.35 TB/s) beside the plain version.
+    No one PyTorch call computes the environment matrix, so there is no
+    library time."""
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.kernels.dp_fused import env
+
+    a, n, live = 123008, 512, 368
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rij, nmask, atype, dstd = env_mat_rows(a, n, live, cfg.rcut + 2.0, dev,
+                                           gen)
+    cut = (cfg.rcut_smth, cfg.rcut)
+    log(f"[2] env matrix: A={a} N={n}: filled slots {a * live} "
+        f"({live / n:.1%}), rcut_smth {cut[0]} rcut {cut[1]}")
+    denv = torch.randn((a, n, 4), generator=gen, device=dev)
+    ds = torch.randn((a, n), generator=gen, device=dev)
+    x = rij.clone().requires_grad_(True)
+    e_p, s_p = env.env_mat_ref(x, nmask, atype, dstd, *cut)
+    (g_p,) = torch.autograd.grad((e_p, s_p), x, (denv, ds), retain_graph=True)
+    e_k, s_k = env.env_mat(rij, nmask, atype, dstd, *cut)
+    g_k = torch.ops.repro_torch.env_mat_bwd(rij, nmask, atype, dstd, denv,
+                                            ds, *cut)
+    # the forward rounds as the eager ops do (the norm's order measured on
+    # the H100); the closed-form backward sums in another order than autograd
+    log(f"  env rows equal bit for bit: "
+        f"{float((e_k == e_p).float().mean()):.6%}")
+    err_f = max(check_close("env", e_k, e_p.detach(), 1e-5, 1e-6),
+                check_close("s", s_k, s_p.detach(), 1e-5, 1e-6))
+    err_b = check_close("dE/dr_ij", g_k, g_p, 1e-5, 2e-6)
+    del e_k, s_k, g_k, g_p
+    t = {"env_mat_fwd": (
+             lambda: env.env_mat(rij, nmask, atype, dstd, *cut),
+             lambda: env.env_mat_ref(rij, nmask, atype, dstd, *cut), err_f),
+         "env_mat_bwd": (
+             lambda: torch.ops.repro_torch.env_mat_bwd(
+                 rij, nmask, atype, dstd, denv, ds, *cut),
+             lambda: torch.autograd.grad((e_p, s_p), x, (denv, ds),
+                                         retain_graph=True), err_b)}
+    nbytes = env.kernel_bytes(a * live, a * n, a)
+    for name, (kernel, plain, err) in t.items():
+        ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 3)
+        bound = nbytes[name] / HW_H100.hbm_bw * 1e3
+        log(f"  {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            f"library null | bound {bound:.4f} ms (bytes) | "
             f"{bound / ms:.1%} of bound | max_abs_err {err:.3e}")
 
 

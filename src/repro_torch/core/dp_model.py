@@ -8,7 +8,9 @@ The implementation ladder follows the paper's optimization story:
   impl="cheb_pallas" + Sec. 3.4.1 kernel fusion and Sec. 3.4.2 redundancy
                        removal: the hand-written CUDA kernel pair in
                        ``repro_torch.kernels.dp_fused`` (G never
-                       materialized). The rung keeps the reference's name.
+                       materialized), and the environment matrix as one
+                       kernel each way (``kernels/dp_fused/env.py``). The
+                       rung keeps the reference's name.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core import descriptor, embedding, fitting, tabulation
 from repro_torch.core.types import DPConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dp_fused import env as env_ops
 from repro_torch.kernels.dp_fused import force as force_ops
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 
@@ -125,8 +128,14 @@ def dp_atomic_energy(params: Dict[str, Any], cfg: DPConfig, rij: torch.Tensor,
         the forces over the model axis after the backward pass).
     """
     impl = impl or cfg.impl
-    env, s = descriptor.env_matrix(rij, nmask, cfg.rcut_smth, cfg.rcut)
-    env_n, s_n = descriptor.normalize_env(env, s, atype, params["dstd"])
+    if impl == "cheb_pallas":
+        # one hand-written kernel each way (inference only: no double
+        # backward); the other rungs keep the plain ops, which training needs
+        env_n, s_n = env_ops.env_mat(rij, nmask, atype, params["dstd"],
+                                     cfg.rcut_smth, cfg.rcut)
+    else:
+        env, s = descriptor.env_matrix(rij, nmask, cfg.rcut_smth, cfg.rcut)
+        env_n, s_n = descriptor.normalize_env(env, s, atype, params["dstd"])
 
     if cfg.ntypes == 1 or cfg.type_one_side:
         t_mat = _t_matrix_onetype(params, cfg, impl, 0, env_n, s_n)

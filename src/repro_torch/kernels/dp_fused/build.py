@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them.
 
 The sources ``csrc/dp_fused.cu`` (the fused tabulation + contraction pair),
-``csrc/prod_force_virial.cu`` (the force-and-virial reduction) and
-``csrc/dpa1_attention.cu`` (DPA-1's gated attention core) have a plain C
+``csrc/prod_force_virial.cu`` (the force-and-virial reduction),
+``csrc/dpa1_attention.cu`` (DPA-1's gated attention core) and
+``csrc/env_mat.cu`` (the se_e2_a environment matrix pair) have a plain C
 interface, so they compile in seconds without PyTorch's headers,
 in one ``nvcc`` call into one shared library. It goes under
 ``build/dp_fused/`` at the repository root, named by a hash of the sources
@@ -25,7 +26,7 @@ from pathlib import Path
 
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
                 for name in ("dp_fused.cu", "prod_force_virial.cu",
-                             "dpa1_attention.cu"))
+                             "dpa1_attention.cu", "env_mat.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "dp_fused"
 # -Xptxas -v makes nvcc report each kernel's registers, shared memory and
 # spills; the log is kept on the loaded library for the smoke run to print.
@@ -73,6 +74,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dpa1_attention_fwd.restype = i
     lib.dpa1_attention_bwd.argtypes = [p] * 14 + [i, i, i, f, f, p]
     lib.dpa1_attention_bwd.restype = i
+    ll = ctypes.c_longlong
+    lib.env_mat_fwd.argtypes = [p] * 6 + [ll, i, i, f, f, f, p]
+    lib.env_mat_fwd.restype = i
+    lib.env_mat_bwd.argtypes = [p] * 7 + [ll, i, i, f, f, f, p]
+    lib.env_mat_bwd.restype = i
     lib.dp_fused_error_string.argtypes = [i]
     lib.dp_fused_error_string.restype = ctypes.c_char_p
 

@@ -33,6 +33,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.types import DPConfig
 from repro_torch.kernels.dp_fused import attention as attention_ops
+from repro_torch.kernels.dp_fused import env as env_ops
 from repro_torch.kernels.dp_fused import force as force_ops
 from repro_torch.kernels.dp_fused import ops as dp_fused_ops
 from repro_torch.md import api, integrator, neighbors
@@ -585,8 +586,9 @@ def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
                   error_mode: str = "global"):
     """Record ``fn()`` as a CUDA graph; returns ``(graph, fn's output,
     the launches the graph recorded)``: dp_fused forward, backward, the
-    force reduction and DPA-1's attention forward and backward, as
-    :func:`count_replay` takes them.
+    force reduction, DPA-1's attention forward and backward and the
+    environment matrix's forward and backward, as :func:`count_replay`
+    takes them.
 
     ``warm()`` runs first on a side stream, as capture requires (its kernels
     really run and count as launches), and ``gens`` are set back to their
@@ -611,22 +613,26 @@ def capture_graph(fn: Callable[[], Any], warm: Callable[[], Any],
     f0, b0 = dp_fused_ops.fwd_captured, dp_fused_ops.bwd_captured
     r0 = force_ops.force_captured
     a0, a1 = attention_ops.attn_fwd_captured, attention_ops.attn_bwd_captured
+    e0, e1 = env_ops.env_fwd_captured, env_ops.env_bwd_captured
     with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
         out = fn()
     return graph, out, (dp_fused_ops.fwd_captured - f0,
                         dp_fused_ops.bwd_captured - b0,
                         force_ops.force_captured - r0,
                         attention_ops.attn_fwd_captured - a0,
-                        attention_ops.attn_bwd_captured - a1)
+                        attention_ops.attn_bwd_captured - a1,
+                        env_ops.env_fwd_captured - e0,
+                        env_ops.env_bwd_captured - e1)
 
 
-def count_replay(launches: Tuple[int, int, int, int, int]) -> None:
+def count_replay(launches: Tuple[int, ...]) -> None:
     """One replay of a graph ran the ``launches`` that
     :func:`capture_graph` counted while recording it."""
-    fwd, bwd, reduction, attn_fwd, attn_bwd = launches
+    fwd, bwd, reduction, attn_fwd, attn_bwd, env_fwd, env_bwd = launches
     dp_fused_ops.count_replay(fwd, bwd)
     force_ops.count_replay(reduction)
     attention_ops.count_replay(attn_fwd, attn_bwd)
+    env_ops.count_replay(env_fwd, env_bwd)
 
 
 class _CapturedSegment:

@@ -1251,6 +1251,219 @@ def test_custom_op_counts_eager_captured_and_replayed_launches(dev):
     assert torch.equal(torch.nan_to_num(g_ds), torch.nan_to_num(ds))
 
 
+# ------------------------------------------ the environment matrix pair
+
+def _env_rows(a, sections, live_share, dev, seed, ntypes=1):
+    """rij (A, N, 3), nmask, atype, dstd as the model gets them: each type
+    section's live slots packed at its front (about ``live_share`` of it),
+    r from 0.8 to 10 A (inside the switch, on its ramp, past rcut 6 A), the
+    first centre's first slots at r = 0, 1e-7, 6 (rcut) and 1 A; padded
+    slots' r_ij NaN (the kernels must never load them) and, for the plain
+    version, 0 as ``gather_rij`` leaves them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = sum(sections)
+    nmask = torch.zeros((a, n), dtype=torch.bool, device=dev)
+    lo = 0
+    for width in sections:
+        cnt = (width * live_share * (0.8 + 0.4 * torch.rand(
+            (a,), generator=gen, device=dev))).round().clamp(max=width)
+        nmask[:, lo:lo + width] = (torch.arange(width, device=dev)[None]
+                                   < cnt[:, None])
+        lo += width
+    unit = torch.nn.functional.normalize(
+        torch.randn((a, n, 3), generator=gen, device=dev), dim=-1)
+    r = 0.8 + 9.2 * torch.rand((a, n), generator=gen, device=dev)
+    r[0, :4] = torch.tensor([0.0, 1e-7, 6.0, 1.0], device=dev)
+    unit[0, 2] = torch.tensor([0.0, 1.0, 0.0], device=dev)   # r exactly 6
+    nmask[0, :4] = True
+    rij = torch.where(nmask[..., None], unit * r[..., None], 0.0)
+    poisoned = torch.where(nmask[..., None], rij, float("nan"))
+    atype = torch.randint(0, ntypes, (a,), generator=gen, device=dev)
+    dstd = 0.2 + torch.rand((ntypes, 4), generator=gen, device=dev)
+    return rij, poisoned, nmask, atype, dstd
+
+
+# copper rows at cu.weak's width (512 slots, 72% live), water's two
+# escalated sections (128 + 248 = 376 slots, two centre types), and a
+# grid-stride wrap (more slots than the grid holds threads)
+_ENV_CASES = {
+    "copper": dict(a=4000, sections=(512,), live_share=0.72),
+    "water": dict(a=4000, sections=(128, 248), live_share=0.59, ntypes=2),
+    "wrap": dict(a=200000, sections=(37,), live_share=0.5, ntypes=3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_ENV_CASES))
+def test_env_mat_kernels_match_the_plain_version(dev, case):
+    """The forward is ``descriptor.env_matrix`` + ``normalize_env`` on the
+    card bit for bit (the kernel rounds as the eager ops do); the backward,
+    against autograd of those ops in float64, errs no more than twice as
+    much as autograd in float32 does, plus an ulp of the largest gradient.
+    Zeros on padded slots (whose r_ij hold NaN) and outside the cut. One
+    launch each."""
+    from repro_torch.kernels.dp_fused import env
+
+    rij, poisoned, nmask, atype, dstd = _env_rows(
+        **_ENV_CASES[case], dev=dev, seed=len(case))
+    f0, b0 = env.env_fwd_launches, env.env_bwd_launches
+    x = poisoned.clone().requires_grad_(True)
+    env_n, s_n = env.env_mat(x, nmask, atype, dstd, 2.0, 6.0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    denv = torch.randn(env_n.shape, generator=gen, device=dev)
+    ds = torch.randn(s_n.shape, generator=gen, device=dev)
+    (got,) = torch.autograd.grad((env_n * denv).sum() + (s_n * ds).sum(), x)
+    torch.cuda.synchronize()
+    assert (env.env_fwd_launches - f0, env.env_bwd_launches - b0) == (1, 1)
+
+    def plain(dtype):
+        y = rij.to(dtype).requires_grad_(True)
+        e_p, s_p = env.env_mat_ref(y, nmask, atype, dstd.to(dtype), 2.0, 6.0)
+        (g,) = torch.autograd.grad(
+            (e_p * denv.to(dtype)).sum() + (s_p * ds.to(dtype)).sum(), y)
+        return e_p.detach(), s_p.detach(), g
+    e32, s32, g32 = plain(torch.float32)
+    assert torch.equal(env_n, e32) and torch.equal(s_n, s32)
+    _, _, g64 = plain(torch.float64)
+    scale = float(g64.abs().max())
+    err_k = float((got.double() - g64).abs().max())
+    err_p = float((g32.double() - g64).abs().max())
+    assert err_k <= 2.0 * err_p + 2.0 ** -24 * scale, (err_k, err_p, scale)
+    # a random r within an ulp of rcut may round to either side of it
+    r = rij.norm(dim=-1)
+    dead = ~nmask | (r <= 1e-6) | (r >= 6.0 + 1e-5) | (r == 6.0)
+    assert not env_n[~nmask].any() and not s_n[~nmask].any()
+    assert not got[dead].any() and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_env_mat_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.dp_fused import env
+
+    rij, _, nmask, atype, dstd = _env_rows(8, (16,), 0.5, dev, 0)
+    with pytest.raises(TypeError):
+        env.env_mat(rij.double(), nmask, atype, dstd, 2.0, 6.0)
+    with pytest.raises(ValueError):
+        env.env_mat(rij, nmask, atype, dstd.cpu(), 2.0, 6.0)
+
+
+def _water_dp_args(dev):
+    """A tiny two-type model (two neighbour sections) on water_box(1,1,1)."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import DPConfig
+    from repro_torch.md import lattice, neighbors
+
+    cfg = DPConfig(ntypes=2, rcut=4.0, rcut_smth=0.5, sel=(16, 32),
+                   type_map=("O", "H"), embed_widths=(8, 16, 32),
+                   axis_neuron=4, fit_widths=(24, 24, 24), table_lower=-1.0,
+                   table_upper=9.0)
+    params = dp_model.tabulate_model(dp_model.init_dp_params(
+        torch.Generator().manual_seed(0), cfg, device=dev), cfg, "cheb")
+    pos, typ, box = lattice.water_box(1, 1, 1, seed=0)
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    typ = torch.as_tensor(typ, dtype=torch.int64, device=dev)
+    box = torch.as_tensor(box, dtype=torch.float32, device=dev)
+    nlist, _ = neighbors.brute_force_neighbors(
+        pos, typ, neighbors.NeighborSpec(rcut_nbr=cfg.rcut, sel=cfg.sel), box)
+    return cfg, (params, pos, nlist, typ, box)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["copper", "water"])
+def test_an_se_e2_a_evaluation_launches_the_env_mat_pair_once(dev, system):
+    """One cheb_pallas evaluation launches env_mat_fwd and env_mat_bwd once
+    each (and the dp_fused pair once a section), and gives the cheb rung's
+    energy and forces (energy rtol 1e-5, forces atol 5e-5)."""
+    from repro_torch.core import dp_model
+    from repro_torch.kernels.dp_fused import env
+
+    cfg, (params, pos, nlist, typ, box) = (
+        _tiny_copper_args if system == "copper" else _water_dp_args)(dev)
+    f0, b0 = env.env_fwd_launches, env.env_bwd_launches
+    d0 = ops.fwd_launches
+    e, f, _ = dp_model.dp_energy_forces(params, cfg, pos, nlist, typ, box,
+                                        impl="cheb_pallas")
+    torch.cuda.synchronize()
+    assert (env.env_fwd_launches - f0, env.env_bwd_launches - b0) == (1, 1)
+    assert ops.fwd_launches - d0 == len(cfg.sel)
+    e_c, f_c, _ = dp_model.dp_energy_forces(params, cfg, pos, nlist, typ, box,
+                                            impl="cheb")
+    assert (env.env_fwd_launches - f0, env.env_bwd_launches - b0) == (1, 1)
+    assert abs(float(e) - float(e_c)) <= 1e-5 * abs(float(e_c))
+    assert float((f - f_c).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_outer_replays_count_the_env_mat_pair(dev):
+    """A captured outer-engine segment records the pair once a step; each
+    replay adds that to the counters, and the profiler's count of the two
+    kernels over two replays of 10 steps agrees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.dp_fused import env
+
+    eng, carry, aux = _copper_engine(dev)
+    c0, c1 = env.env_fwd_captured, env.env_bwd_captured
+    eng.run(carry, 1, 10, *aux)                        # capture
+    assert (env.env_fwd_captured - c0, env.env_bwd_captured - c1) == (10, 10)
+    f0, b0 = env.env_fwd_launches, env.env_bwd_launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(carry, 2, 10, *aux)
+        torch.cuda.synchronize()
+    counted = (env.env_fwd_launches - f0, env.env_bwd_launches - b0)
+    assert counted == (20, 20)
+    seen = tuple(sum(e.count for e in prof.key_averages() if name in e.key)
+                 for name in ("env_mat_forward_kernel",
+                              "env_mat_backward_kernel"))
+    assert seen == counted, seen
+
+
+@pytest.mark.cuda
+def test_a_scan_trajectory_through_the_env_mat_pair_matches_the_torch_ops(
+        dev, monkeypatch):
+    """The paper's copper model at full width on fcc_copper(9,9,9) = 2,916
+    atoms, 50 NVE steps on the scan engine from 330 K, once through the
+    kernel pair and once through the plain torch ops: within
+    cu.weak.1card's limits (``mdbench/limits/cu.weak.1card.json``): PE rows
+    1e-6 eV an atom, the last velocities 6e-9 A/fs, the last positions
+    6e-5 A. The force reduction's atomics sum in another order in each run,
+    so neither run repeats itself bit for bit either."""
+    from repro_torch.core import dp_model
+    from repro_torch.core.types import COPPER_DP
+    from repro_torch.kernels.dp_fused import env
+    from repro_torch.md import api, lattice
+
+    params = dp_model.tabulate_model(dp_model.init_dp_params(
+        torch.Generator().manual_seed(0), COPPER_DP, device=dev), COPPER_DP,
+        "cheb")
+    pos, typ, box = lattice.fcc_copper(9, 9, 9)
+    spec = api.SimulationSpec(api.make_potential("dp", COPPER_DP,
+                                                 impl="cheb_pallas"),
+                              api.NVE(), steps=50, thermo_every=1,
+                              engine="scan", seed=3)
+
+    def run():
+        return api.Simulation(spec).run(params, pos, typ, box, device=dev)
+
+    f0 = env.env_fwd_launches
+    kernel = run()
+    f1 = env.env_fwd_launches
+    assert f1 - f0 >= 50
+    monkeypatch.setattr(dp_model.env_ops, "env_mat", env.env_mat_ref)
+    plain = run()
+    assert env.env_fwd_launches == f1
+    n = len(pos)
+    pe = max(abs(a["pe"] - b["pe"]) for a, b in zip(kernel.thermo,
+                                                    plain.thermo)) / n
+    assert len(kernel.thermo) == len(plain.thermo) >= 50
+    assert pe <= 1e-6, pe
+    assert np.abs(kernel.final_vel - plain.final_vel).max() <= 6e-9
+    d = kernel.final_pos - plain.final_pos
+    d -= np.asarray(box) * np.round(d / np.asarray(box))
+    assert np.abs(d).max() <= 6e-5
+
+
 # ---------------------------------------------------------- LM zoo serving
 
 _LM_ARCHS = ["glm4_9b", "qwen2_72b", "qwen3_1p7b", "granite_3_8b",

@@ -537,16 +537,19 @@ def test_local_comm_collectives_under_thread_switching():
 
 def test_launch_counters_survive_concurrent_ranks():
     """The kernels' launch counters (the dp_fused pair's, the force
-    reduction's and DPA-1's attention pair's, as a replay adds them) are
-    read-modify-writes shared by every rank thread: more threads than cores,
-    a tiny switch interval, and not one update lost."""
-    from repro_torch.kernels.dp_fused import attention, force, ops
+    reduction's, DPA-1's attention pair's and the environment matrix
+    pair's, as a replay adds them) are read-modify-writes shared by every
+    rank thread: more threads than cores, a tiny switch interval, and not
+    one update lost."""
+    from repro_torch.kernels.dp_fused import attention, env, force, ops
 
     n_threads, per = 2 * (os.cpu_count() or 4) + 1, 500
     before = (ops.fwd_launches, ops.bwd_launches, force.force_launches,
-              attention.attn_fwd_launches, attention.attn_bwd_launches)
+              attention.attn_fwd_launches, attention.attn_bwd_launches,
+              env.env_fwd_launches, env.env_bwd_launches)
     threads = [threading.Thread(target=lambda: [
-                   stepper.count_replay((1, 2, 3, 4, 5)) for _ in range(per)])
+                   stepper.count_replay((1, 2, 3, 4, 5, 6, 7))
+                   for _ in range(per)])
                for _ in range(n_threads)]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -561,10 +564,12 @@ def test_launch_counters_survive_concurrent_ranks():
     got = (ops.fwd_launches - before[0], ops.bwd_launches - before[1],
            force.force_launches - before[2],
            attention.attn_fwd_launches - before[3],
-           attention.attn_bwd_launches - before[4])
+           attention.attn_bwd_launches - before[4],
+           env.env_fwd_launches - before[5], env.env_bwd_launches - before[6])
     (ops.fwd_launches, ops.bwd_launches, force.force_launches,
-     attention.attn_fwd_launches, attention.attn_bwd_launches) = before
-    assert got == tuple(i * n_threads * per for i in range(1, 6))
+     attention.attn_fwd_launches, attention.attn_bwd_launches,
+     env.env_fwd_launches, env.env_bwd_launches) = before
+    assert got == tuple(i * n_threads * per for i in range(1, 8))
 
 
 def test_md_run_cli_on_the_cpu(capsys, monkeypatch):
